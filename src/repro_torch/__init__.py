@@ -1,0 +1,26 @@
+"""``repro_torch`` — Parallel Sorted Neighborhood blocking on PyTorch + CUDA.
+
+The PyTorch port of ``repro`` (the JAX/Pallas reference package beside
+it).  The module layout mirrors the reference so every module has a
+counterpart of the same name:
+
+  core/        entity schema, matchers, window band + band engines,
+               partition functions, the SRP / RepSN / JobSN shard steps,
+               the host sequential-SN oracles
+  kernels/     hand-written Hopper kernels (``kernels/csrc``) behind
+               PyTorch wrappers, each with its plain-PyTorch version
+  api/         ``ERConfig``, variants, runners, ``resolve`` / ``link``
+  balance/     key profile, legacy shard planners, capacity sizing
+  resilience/  the overflow-recovery ladder
+  obs/         a no-op span seam (tracing is not ported yet)
+
+Differences of form, not of result: the shard axis the reference vmaps is
+an explicit leading dim ``r`` on every tensor of the shard program, the
+named-axis collectives become ops over that dim, and bit-packed signatures
+travel as int32 bit views of the reference's uint32 words.
+
+Entry points (``api.resolve``, ``api.link``, ``api.VmapRunner``) run on
+the CUDA device unless the caller passes ``device="cpu"``; without a card
+they raise instead of falling back.  This package imports neither ``jax``
+nor ``repro``.
+"""

@@ -1,0 +1,287 @@
+"""Typed result objects + host-side pair extraction (port of
+``repro.api.results``; everything here is host numpy).
+
+Replaces the raw nested dicts the old pipeline returned: results carry the
+pair sets, per-shard load, overflow accounting, and (optionally) blocking
+quality metrics computed against the sequential oracle.
+
+Internally pairs travel as PACKED uint64 arrays — ``(lo << 32) | hi`` with
+``lo < hi`` eids — deduplicated by ``unique_packed`` (one sort).  Collection is then one
+batched nonzero + pack + unique (linear, vectorized) instead of building
+millions of Python tuples; frozensets of (lo, hi) tuples appear only at the
+public ``RunnerOutcome``/``BlockingResult`` boundary.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import FrozenSet, NamedTuple, Optional, Set, Tuple
+
+import numpy as np
+
+from repro_torch.resilience.retry import ResilienceStats
+
+Pair = Tuple[int, int]
+
+PACKED_DTYPE = np.uint64
+
+
+def pack_pairs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Elementwise (a, b) eid pairs -> canonical packed uint64
+    ``(min << 32) | max``.  Eids must be non-negative and < 2^32."""
+    a = np.asarray(a, PACKED_DTYPE)
+    b = np.asarray(b, PACKED_DTYPE)
+    lo = np.minimum(a, b)
+    hi = np.maximum(a, b)
+    return (lo << PACKED_DTYPE(32)) | hi
+
+
+def unique_packed(packed: np.ndarray) -> np.ndarray:
+    """Sorted distinct values of a packed pair array: one sort and a
+    neighbour compare — ``np.unique``'s answer.  Newer numpy releases
+    route ``np.unique`` through a hash table, which measured ~9 s per call
+    on 12.6M pairs against under 1 s for the sort (a profile of
+    ``chip_smoke.py``'s main path); host collection is the resolve's
+    bottleneck, so the sort is spelled out."""
+    s = np.sort(np.asarray(packed, PACKED_DTYPE))
+    if s.size < 2:
+        return s
+    keep = np.empty(s.shape, bool)
+    keep[0] = True
+    np.not_equal(s[1:], s[:-1], out=keep[1:])
+    return s[keep]
+
+
+def unpack_pairs(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Packed uint64 -> (lo, hi) int64 arrays."""
+    packed = np.asarray(packed, PACKED_DTYPE)
+    lo = (packed >> PACKED_DTYPE(32)).astype(np.int64)
+    hi = (packed & PACKED_DTYPE(0xFFFFFFFF)).astype(np.int64)
+    return lo, hi
+
+
+def pack_pair_set(pairs: Set[Pair]) -> np.ndarray:
+    """Host pair set -> sorted deduplicated packed array."""
+    if not pairs:
+        return np.empty((0,), PACKED_DTYPE)
+    flat = np.fromiter((c for p in pairs for c in p), np.int64,
+                       2 * len(pairs)).reshape(-1, 2)
+    return unique_packed(pack_pairs(flat[:, 0], flat[:, 1]))
+
+
+def packed_to_frozenset(packed: np.ndarray) -> FrozenSet[Pair]:
+    """Packed array -> public frozenset of (lo, hi) tuples (the one place
+    Python pair objects are materialized)."""
+    lo, hi = unpack_pairs(packed)
+    return frozenset(zip(lo.tolist(), hi.tolist()))
+
+
+class CollectedPairs(NamedTuple):
+    """Deduplicated packed uint64 pair arrays (see ``pack_pairs``)."""
+    blocked: np.ndarray
+    matched: np.ndarray
+
+
+@dataclass(frozen=True)
+class BalanceMetrics:
+    """Planned vs realized per-shard load under a ShardPlan (skew
+    telemetry: wall-clock is the MAX of
+    per-shard matcher work, so the imbalance ratio max/mean is the direct
+    parallel-efficiency loss).
+
+    planned_*            what the partition planner promised (profile-based)
+    realized_*           what the run delivered (post-shuffle valid counts;
+                         comparisons re-derived through the window cost
+                         model from the realized contiguous rank layout)
+    imbalance_*          max/mean of per-shard comparison counts (1.0 =
+                         perfectly level)
+    straggler_shard      shard id with the largest realized comparison load
+    halo_entities        total entities replicated across boundaries
+    cap_link             planned per-(mapper, dest) shuffle capacity
+                         (None: capacity derived from cfg.cap_factor)
+    """
+    partitioner: str
+    planned_load: Tuple[int, ...]
+    realized_load: Tuple[int, ...]
+    planned_comparisons: Tuple[int, ...]
+    realized_comparisons: Tuple[int, ...]
+    imbalance_planned: float
+    imbalance_realized: float
+    straggler_shard: int
+    halo_entities: int
+    cap_link: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class PerfStats:
+    """Execution-cache telemetry for one ``resolve``/``link`` call.  The
+    port has no executable cache yet (ROADMAP M11), so ``resolve`` reports
+    all zeros here.
+
+    cache_hits      executables reused from the cache
+    cache_misses    executables built (== programs lowered) by this call
+    traces          jit traces actually performed (a healthy cache has
+                    traces == cache_misses; more means a keying bug let one
+                    executable see two shapes)
+    cache_entries   total executables resident after the call
+    """
+    cache_hits: int
+    cache_misses: int
+    traces: int
+    cache_entries: int
+
+    @property
+    def steady_state(self) -> bool:
+        """True when the call ran entirely from cached executables — at
+        least one hit and no build/trace.  A bypassed cache (jit_cache=
+        False, legacy shims) reports all-zero counters and is NOT steady
+        state: it re-traced every call."""
+        return self.cache_hits > 0 and self.traces == 0 and \
+            self.cache_misses == 0
+
+
+@dataclass(frozen=True)
+class ERMetrics:
+    """Blocking quality vs the sequential-SN oracle (the standard blocking
+    metrics; the paper reports |B| and completeness of the variants).
+
+    reduction_ratio     1 - |blocked| / |all comparable pairs|
+    pairs_completeness  |blocked ∩ oracle| / |oracle|
+    balance             planned-vs-realized shard load (profile-backed runs)
+    resilience          overflow-recovery telemetry (retries / escalations /
+                        final caps — DESIGN.md §11)
+    """
+    reduction_ratio: float
+    pairs_completeness: float
+    oracle_pairs: int
+    total_comparisons: int
+    balance: Optional[BalanceMetrics] = None
+    resilience: Optional[ResilienceStats] = None
+    quality: Optional[object] = None  # ground-truth metrics (M7)
+
+
+@dataclass(frozen=True)
+class BlockingResult:
+    """Outcome of the blocking stage (candidate generation)."""
+    pairs: FrozenSet[Pair]          # blocked (candidate) pairs, (lo, hi) eids
+    load: Tuple[int, ...]           # per-shard valid counts (skew telemetry)
+    overflow: int                   # entities dropped by capacity limits
+    variant: str
+    runner: str
+    window: int
+    num_shards: int
+    cand_count: Tuple[int, ...] = ()  # per-shard gate survivors (pallas)
+    cand_overflow: int = 0          # cascade survivors dropped by cand_cap
+    matcher_evals: int = 0          # full-cascade evaluations actually run
+    pair_overflow: int = 0          # emitted pair-index slots dropped by
+    #                                 pair_cap (emit="pairs"; can lose
+    #                                 blocked pairs AND matches — counted,
+    #                                 never silent)
+    pruned: int = 0                 # band slots dropped by meta-blocking
+    #                                 comparison pruning (prune_policy=
+    #                                 "evidence"): deliberate low-evidence
+    #                                 filtering, accounted like overflow but
+    #                                 never retried
+
+    @property
+    def max_load(self) -> int:
+        """Largest per-shard valid count — the straggler's load (wall-clock
+        scales with this, not the mean)."""
+        return max(self.load) if self.load else 0
+
+    @property
+    def total_load(self) -> int:
+        """Sum of per-shard valid counts (== entities that survived the
+        shuffle; compare with the input n to spot capacity overflow)."""
+        return sum(self.load)
+
+
+@dataclass(frozen=True)
+class ERResult:
+    """Full entity-resolution outcome: blocking + matching (+ metrics).
+
+    ``balance`` is populated whenever the run executed under a profile-
+    backed ShardPlan (any ``cfg.partitioner`` default-bounds run); runs on
+    explicit raw bounds have no plan to compare against and carry None."""
+    blocking: BlockingResult
+    matches: FrozenSet[Pair]        # matcher-accepted pairs
+    metrics: Optional[ERMetrics] = None
+    balance: Optional[BalanceMetrics] = None
+    perf: Optional[PerfStats] = None  # executable-cache telemetry for this
+    #                                   call (hits / misses / traces)
+    resilience: Optional[ResilienceStats] = None  # overflow-recovery
+    #                                   telemetry (retries / escalations /
+    #                                   final caps — DESIGN.md §11)
+    trace: Optional[object] = None  # trace report (M10; always None)
+
+    @property
+    def pairs(self) -> FrozenSet[Pair]:
+        """The blocked (candidate) pair set — sugar for blocking.pairs."""
+        return self.blocking.pairs
+
+
+# -- pair extraction (band mask -> host pairs) --------------------------------------
+
+def packed_pairs_from_idx(part: dict, field: str = "match") -> np.ndarray:
+    """Device-emitted packed indices -> deduplicated packed pair array.
+
+    ``part``: stacked per-shard output with ``eid`` (r, M) plus the emitted
+    buffers ``<field>_idx`` (r, cap) int32 flat band indices ``(d-1)*M+i``
+    and ``<field>_n`` (r,) valid counts (window.emit_band_indices).  Eid
+    translation is vectorized: one mask + two fancy gathers + ``unique_packed``
+    over ~cap slots instead of an O(r*w*M) band scan."""
+    eid = np.asarray(part["eid"] if "eid" in part
+                     else part["ents"]["eid"])            # (r, M)
+    idx = np.asarray(part[field + "_idx"])                # (r, cap)
+    cnt = np.asarray(part[field + "_n"]).reshape(-1)      # (r,)
+    m = eid.shape[1]
+    keep = np.arange(idx.shape[1])[None, :] < cnt[:, None]
+    ss, pp = np.nonzero(keep)
+    if ss.size == 0:
+        return np.empty((0,), PACKED_DTYPE)
+    flat = idx[ss, pp].astype(np.int64)
+    d = flat // m + 1
+    i = flat % m
+    a = eid[ss, i]
+    b = eid[ss, i + d]              # in-bounds: band masks force i + d < M
+    return unique_packed(pack_pairs(a, b))
+
+
+def packed_pairs_from_part(part: dict, field: str = "match") -> np.ndarray:
+    """Collect a part through whichever representation it carries:
+    device-emitted index buffers (emit="pairs") or boolean bands."""
+    if field + "_idx" in part:
+        return packed_pairs_from_idx(part, field)
+    return packed_pairs_from_band(part, field)
+
+
+def packed_pairs_from_band(part: dict, field: str = "match") -> np.ndarray:
+    """Vectorized band -> deduplicated packed pair array (the hot host path).
+
+    ``part``: stacked per-shard output dict with ``ents`` (eid: (r, M)) and a
+    boolean band ``field`` of shape (r, w-1, M); band[s, d-1, i] pairs slot i
+    with slot i+d of shard s.  One batched nonzero + pack + ``unique_packed`` —
+    no Python pair objects anywhere on the path."""
+    eid = np.asarray(part["ents"]["eid"])                 # (r, M)
+    band = np.asarray(part[field])                        # (r, w-1, M)
+    ss, ds, iis = np.nonzero(band)
+    if ss.size == 0:
+        return np.empty((0,), PACKED_DTYPE)
+    a = eid[ss, iis]
+    b = eid[ss, iis + ds + 1]       # in-bounds: masks force i + d < M
+    return unique_packed(pack_pairs(a, b))
+
+
+def compute_metrics(blocked: FrozenSet[Pair], oracle: Set[Pair],
+                    total_comparisons: int) -> ERMetrics:
+    """Standard blocking-quality metrics of ``blocked`` against the
+    sequential-SN ``oracle`` pair set: reduction ratio = 1 − |blocked| /
+    ``total_comparisons`` (the full comparison space) and pairs
+    completeness = |blocked ∩ oracle| / |oracle| (1.0 when no oracle pair
+    was lost; degenerate inputs score 1.0 by convention)."""
+    n_oracle = len(oracle)
+    pc = 1.0 if n_oracle == 0 else len(blocked & oracle) / n_oracle
+    rr = 1.0 if total_comparisons <= 0 else \
+        1.0 - len(blocked) / total_comparisons
+    return ERMetrics(reduction_ratio=rr, pairs_completeness=pc,
+                     oracle_pairs=n_oracle,
+                     total_comparisons=total_comparisons)

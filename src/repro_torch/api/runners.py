@@ -1,0 +1,323 @@
+"""Runners — who executes the variant's shard program (port of
+``repro.api.runners``).
+
+  * SequentialRunner  host oracle (CPU torch + numpy) with the chosen
+                      variant's SEMANTICS (srp: per-partition windows;
+                      repsn/jobsn: the complete SN pair set) — the reference
+                      every parallel run is checked against
+  * VmapRunner        one device, r shards on an explicit leading dim (the
+                      reference vmaps a named axis; the collectives become
+                      ops over that dim).  Answers to ``runner="vmap"``.
+
+Both return a ``RunnerOutcome`` with identical semantics.  ``VmapRunner``
+also exposes ``run_raw``: the per-shard outputs (leading dim r) as tensors
+on its device, for benchmarks and invariant tests.
+
+``bounds`` may be a raw (r-1,) boundary array or a ``ShardPlan``.  There is
+no executable cache yet (ROADMAP M11): PyTorch runs eagerly, so the facade
+reports all-zero ``PerfStats``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import FrozenSet, NamedTuple, Optional, Protocol, Tuple, \
+    runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch import obs as OBS
+from repro_torch.api import linkage as LK
+from repro_torch.api import results as RES
+from repro_torch.api.variants import get_variant
+from repro_torch.balance.planners import as_plan
+from repro_torch.core import entities as E
+from repro_torch.device import resolve_device
+
+Pair = Tuple[int, int]
+
+
+def _apply_plan(ents: dict, bounds, r: int, cfg):
+    """Normalize (bounds | ShardPlan) for the device runner: returns
+    (ents_with_routing, bounds tensor, cap_link).  A partition count other
+    than the runner's shard count is rejected."""
+    plan = as_plan(bounds)
+    if plan.num_shards != r:
+        raise ValueError(
+            f"plan defines {plan.num_shards} partitions but the runner has "
+            f"{r} shards")
+    dev = ents["key"].device
+    if plan.dest is not None:
+        ents = dict(ents)
+        ents["payload"] = dict(ents["payload"], _dest=torch.as_tensor(
+            np.asarray(plan.dest, np.int32), device=dev))
+    # explicit cap_factor keeps its override; otherwise the planner's
+    # exact capacity applies
+    cap_link = plan.cap_link if cfg.cap_factor <= 0 else None
+    return ents, torch.as_tensor(np.asarray(plan.bounds, np.int32),
+                                 device=dev), cap_link
+
+
+class RunnerOutcome(NamedTuple):
+    """What every runner returns: host pair sets + accounting (see the
+    reference's ``RunnerOutcome`` for each counter)."""
+    blocked: FrozenSet[Pair]
+    matched: FrozenSet[Pair]
+    load: Tuple[int, ...]
+    overflow: int
+    num_shards: int
+    cand_count: Tuple[int, ...] = ()
+    cand_overflow: int = 0
+    matcher_evals: int = 0
+    pair_overflow: int = 0
+    pruned: int = 0
+
+
+class PackedOutcome(NamedTuple):
+    """``RunnerOutcome`` with the pair sets left as deduplicated packed
+    uint64 arrays (``(lo << 32) | hi``)."""
+    blocked: np.ndarray
+    matched: np.ndarray
+    load: Tuple[int, ...]
+    overflow: int
+    num_shards: int
+    cand_count: Tuple[int, ...] = ()
+    cand_overflow: int = 0
+    matcher_evals: int = 0
+    pair_overflow: int = 0
+    pruned: int = 0
+
+    def to_outcome(self) -> RunnerOutcome:
+        """Materialize the public RunnerOutcome (frozensets of (lo, hi))."""
+        return RunnerOutcome(
+            blocked=RES.packed_to_frozenset(self.blocked),
+            matched=RES.packed_to_frozenset(self.matched),
+            load=self.load, overflow=self.overflow,
+            num_shards=self.num_shards, cand_count=self.cand_count,
+            cand_overflow=self.cand_overflow,
+            matcher_evals=self.matcher_evals,
+            pair_overflow=self.pair_overflow,
+            pruned=self.pruned)
+
+
+@runtime_checkable
+class Runner(Protocol):
+    """The execution contract every runner satisfies."""
+
+    name: str
+
+    @property
+    def shards(self) -> int:
+        ...
+
+    def resolve(self, ents: dict, bounds, cfg) -> RunnerOutcome:
+        ...
+
+    def resolve_packed(self, ents: dict, bounds, cfg) -> PackedOutcome:
+        ...
+
+
+def shard_input(ents: dict, r: int) -> dict:
+    """Split into r mapper shards of ceil(n/r) contiguous slots each (the
+    last one padded with invalid slots): every tensor gets leading dim r."""
+    n = ents["key"].shape[0]
+    cap0 = int(np.ceil(n / r))
+    pad = r * cap0 - n
+    padded = E.concat(ents, E.empty_like(ents, pad)) if pad else ents
+    return E.map_fields(
+        padded, lambda x: x.reshape((r, cap0) + tuple(x.shape[1:])))
+
+
+def _to_host(out):
+    """Runner output -> numpy.  Emitted index buffers are cut to their
+    longest valid prefix on the device first, so the transfer carries the
+    pairs and not the unused capacity."""
+    if torch.is_tensor(out):
+        return out.cpu().numpy()
+    if not isinstance(out, dict):
+        return out
+    out = dict(out)
+    for field in ("mask", "match"):
+        if field + "_idx" in out:
+            used = int(out[field + "_n"].max()) if out[field + "_n"].numel() \
+                else 0
+            out[field + "_idx"] = out[field + "_idx"][..., :used]
+    return {k: _to_host(v) for k, v in out.items()}
+
+
+def _device_outcome_packed(out: dict, cfg, r: int) -> PackedOutcome:
+    """Per-shard device output -> PackedOutcome (host collection +
+    accounting)."""
+    with OBS.span("collect"):
+        out = _to_host(out)
+        variant = get_variant(cfg.variant)
+        col = variant.collect(out)
+        load = tuple(int(x) for x in out["load"][0])
+        overflow = int(out["overflow"][0])
+        cand_count = np.zeros(r, np.int64)
+        cand_overflow = matcher_evals = pair_overflow = pruned = 0
+        for p in variant.parts:
+            if p in out:
+                cand_count += np.asarray(out[p]["cand_count"], np.int64)
+                cand_overflow += int(out[p]["cand_overflow"].sum())
+                matcher_evals += int(
+                    np.asarray(out[p]["matcher_evals"], np.int64).sum())
+                if "pruned" in out[p]:
+                    pruned += int(out[p]["pruned"].sum())
+                if "mask_overflow" in out[p]:
+                    pair_overflow += int(out[p]["mask_overflow"].sum()) + \
+                        int(out[p]["match_overflow"].sum())
+    return PackedOutcome(blocked=col.blocked, matched=col.matched,
+                         load=load, overflow=overflow, num_shards=r,
+                         cand_count=tuple(int(c) for c in cand_count),
+                         cand_overflow=cand_overflow,
+                         matcher_evals=matcher_evals,
+                         pair_overflow=pair_overflow,
+                         pruned=pruned)
+
+
+@dataclass(frozen=True)
+class VmapRunner:
+    """r shards on one device as an explicit leading dim.  ``device=None``
+    means the CUDA card (raises without one)."""
+    num_shards: int = 8
+    device: Optional[str] = None
+    name = "vmap"
+
+    @property
+    def shards(self) -> int:
+        return self.num_shards
+
+    def run_raw(self, ents: dict, bounds, cfg) -> dict:
+        """Execute the variant's shard program and return the per-shard
+        output dict (tensors with leading dim r on the runner's device)
+        without host collection."""
+        r = self.num_shards
+        dev = resolve_device(self.device)
+        variant = get_variant(cfg.variant)
+        ents, b, cap_link = _apply_plan(E.to_device(ents, dev), bounds, r,
+                                        cfg)
+        with OBS.span("shard_program", runner="vmap", shards=r), \
+                torch.inference_mode():
+            return variant.shard_program(shard_input(ents, r), b, r, cfg,
+                                         cap_link=cap_link)
+
+    def resolve(self, ents: dict, bounds, cfg) -> RunnerOutcome:
+        return self.resolve_packed(ents, bounds, cfg).to_outcome()
+
+    def resolve_packed(self, ents: dict, bounds, cfg) -> PackedOutcome:
+        return _device_outcome_packed(self.run_raw(ents, bounds, cfg), cfg,
+                                      self.num_shards)
+
+
+def _rows_of_pairs(ents_host: dict, blocked: np.ndarray):
+    """Row indices (into the host entity dict) of each packed pair's two
+    eids, with ``blocked`` sorted (lexicographic (lo, hi) order)."""
+    rows = np.nonzero(ents_host["valid"])[0]
+    eids = ents_host["eid"][rows]
+    order = np.argsort(eids)
+    sorted_eids, sorted_rows = eids[order], rows[order]
+    plo, phi = RES.unpack_pairs(blocked)
+    return (sorted_rows[np.searchsorted(sorted_eids, plo)],
+            sorted_rows[np.searchsorted(sorted_eids, phi)])
+
+
+@dataclass(frozen=True)
+class SequentialRunner:
+    """Host oracle: variant-faithful sequential blocking + batched matching
+    on the CPU.  ``load`` reports per-PARTITION sizes."""
+    num_shards: int = 1
+    name = "sequential"
+    match_chunk: int = 1 << 16
+
+    @property
+    def shards(self) -> int:
+        return self.num_shards
+
+    def resolve(self, ents: dict, bounds, cfg) -> RunnerOutcome:
+        return self.resolve_packed(ents, bounds, cfg).to_outcome()
+
+    def resolve_packed(self, ents: dict, bounds, cfg) -> PackedOutcome:
+        plan = as_plan(bounds)
+        bounds = np.asarray(plan.bounds)
+        r = plan.num_shards
+        host = E.to_host(ents)
+        valid = host["valid"]
+        keys = host["key"][valid]
+        eids = host["eid"][valid]
+        part = plan.assignment(host["key"], valid)
+        weff_all = host["payload"].get("_weff")
+        weff = None if weff_all is None else weff_all[valid]
+
+        with OBS.span("block", runner="sequential", shards=r):
+            blocked = RES.pack_pair_set(
+                get_variant(cfg.variant).sequential_pairs(
+                    keys, eids, bounds, cfg.window, part=part, weff=weff))
+            if getattr(cfg, "linkage", False) and "src" in host["payload"]:
+                src = host["payload"]["src"][valid]
+                blocked = LK.filter_cross_source_packed(blocked, eids, src)
+        pruned = 0
+        if getattr(cfg, "prune_policy", "off") == "evidence":
+            blocked, pruned = self._prune(host, blocked, cfg)
+        with OBS.span("match", pairs=int(blocked.size)):
+            matched = self._match(host, blocked, cfg)
+
+        load = tuple(np.bincount(part, minlength=r).astype(int).tolist())
+        return PackedOutcome(blocked=blocked, matched=matched,
+                             load=load, overflow=0, num_shards=r,
+                             matcher_evals=int(blocked.size),
+                             pruned=pruned)
+
+    def _prune(self, host: dict, blocked: np.ndarray, cfg
+               ) -> Tuple[np.ndarray, int]:
+        """Evidence pruning, sequential form: each blocked pair's CHEAP
+        cascade evidence with the same math the band engines'
+        ``prune_low_evidence`` uses — identical keep decisions."""
+        from repro_torch.core import window as W
+        from repro_torch.core.match import cosine_sim, jaccard_sig
+
+        payload = {k: torch.from_numpy(v)
+                   for k, v in host["payload"].items()}
+        split = W.split_cascade(cfg.matcher, payload)
+        if split is None:
+            raise ValueError(
+                "prune_policy='evidence' needs a matcher whose cascade "
+                "starts with a kernel-supported cheap stage (cosine/jaccard "
+                "on a present payload field); split_cascade found none")
+        if blocked.size == 0:
+            return blocked, 0
+        blocked = np.sort(blocked)
+        ra, rb = (torch.from_numpy(x) for x in _rows_of_pairs(host, blocked))
+        cheap = torch.zeros(ra.shape[0], dtype=torch.float32)
+        if split.feat_field is not None:
+            feat = payload[split.feat_field]
+            cheap = cheap + split.w_cos * cosine_sim(feat[ra], feat[rb])
+        if split.sig_field is not None:
+            sig = payload[split.sig_field]
+            cheap = cheap + split.w_jac * jaccard_sig(sig[ra], sig[rb])
+        bar = cfg.prune_threshold * (split.w_cos + split.w_jac) - W.GATE_EPS
+        kept = blocked[(cheap >= bar).numpy()]
+        return kept, int(blocked.size - kept.size)
+
+    def _match(self, host: dict, blocked: np.ndarray, cfg) -> np.ndarray:
+        """Score blocked pairs (packed uint64) with the cascade matcher in
+        chunks (skip=False: identical accept/reject decisions, exact
+        scores).  Returns the matched subset, still packed."""
+        if blocked.size == 0:
+            return blocked
+        blocked = np.sort(blocked)          # == lexicographic (lo, hi) order
+        ra, rb = _rows_of_pairs(host, blocked)
+        payload = {k: torch.from_numpy(v)
+                   for k, v in host["payload"].items()}
+        matcher = cfg.matcher
+        keep = np.zeros(blocked.shape[0], bool)
+        chunk = self.match_chunk
+        with torch.inference_mode():
+            for s in range(0, blocked.shape[0], chunk):
+                ia = torch.from_numpy(ra[s:s + chunk])
+                ib = torch.from_numpy(rb[s:s + chunk])
+                pa = {k: v[ia] for k, v in payload.items()}
+                pb = {k: v[ib] for k, v in payload.items()}
+                score, _ = matcher.combined(pa, pb, skip=False)
+                keep[s:s + chunk] = (score >= matcher.threshold).numpy()
+        return blocked[keep]

@@ -1,0 +1,71 @@
+"""Shared helpers for the port's parity tests (``tests/test_torch_*.py``).
+
+The JAX package ``repro`` is the reference; ``repro_torch`` is held to it
+on the CPU.  Inputs are made once with numpy and handed to both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+# every counter a resolve result carries, compared field by field
+RESULT_FIELDS = ("pairs", "matches", "load", "overflow", "cand_count",
+                 "cand_overflow", "pair_overflow", "pruned", "matcher_evals")
+
+
+def _field(res, name):
+    if name == "pairs":
+        return res.blocking.pairs
+    if name == "matches":
+        return res.matches
+    value = getattr(res.blocking, name)
+    return tuple(value) if isinstance(value, tuple) else value
+
+
+def assert_same_result(ref, port) -> None:
+    """The one parity contract: pairs, matches, ``load`` and every overflow
+    and work counter identical between a reference and a port result."""
+    for name in RESULT_FIELDS:
+        a, b = _field(ref, name), _field(port, name)
+        if name in ("pairs", "matches"):
+            assert a == b, (f"{name}: {len(a)} vs {len(b)}; only in ref "
+                            f"{sorted(a - b)[:5]}, only in port "
+                            f"{sorted(b - a)[:5]}")
+        else:
+            assert a == b, f"{name}: {a} vs {b}"
+
+
+def port_ents(ref_ents, device="cpu"):
+    """The reference entity dict as the port's (tensors on ``device``)."""
+    from repro_torch.core import entities as TE
+    return TE.from_numpy(ref_ents, device)
+
+
+def paper_cascades():
+    """(reference, port) paper cascades: cosine 0.25 + Jaccard 0.25 gating
+    edit distance 0.5 on ``text``, threshold 0.75."""
+    from repro.core.match import CascadeMatcher, Matcher
+    from repro_torch.core.match import paper_cascade
+    ref = CascadeMatcher(matchers=(
+        Matcher(field="feat", kind="cosine", weight=0.25, cost=1.0),
+        Matcher(field="sig", kind="jaccard", weight=0.25, cost=2.0),
+        Matcher(field="text", kind="edit", weight=0.5, cost=10.0),
+    ), threshold=0.75)
+    return ref, paper_cascade()
+
+
+def to_np(x):
+    """A tensor (any device) or array as numpy."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") \
+        else np.asarray(x)
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device for tests marked ``gpu``: decided when the test
+    runs, never at import (so every test worker collects the same tests);
+    skips where there is no card."""
+    torch = pytest.importorskip("torch")
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    return "cuda"

@@ -1,0 +1,83 @@
+"""The port stands alone: ``repro_torch`` imports neither ``jax`` nor the
+reference package ``repro``, and its entry points default to the CUDA card
+and raise where there is none (never dropping to the CPU on their own)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import api as TA  # noqa: E402
+from repro_torch.core import entities as TE  # noqa: E402
+
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def test_import_loads_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.build, repro_torch.balance\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_module_imports_jax_or_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_chip_smoke_imports_no_jax_or_reference():
+    smoke = PKG.parents[1] / "chip_smoke.py"
+    for mod in _imported_modules(smoke):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
+def _ents():
+    return TE.synth_entities(np.random.default_rng(0), 40, n_keys=8)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    cfg = TA.ERConfig(window=3, num_shards=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TA.resolve(_ents(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TA.link(_ents(), _ents(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TA.VmapRunner(2).run_raw(_ents(), np.array([3], np.int32), cfg)
+    # the explicit CPU request runs
+    res = TA.resolve(_ents(), cfg, device="cpu")
+    assert res.blocking.pairs
+
+
+def test_kernel_wrapper_raises_for_non_cpu_non_cuda_tensors():
+    from repro_torch.kernels import ops
+    feat = torch.zeros((1, 4, 2), device="meta")
+    sig = torch.zeros((1, 4, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.fused_cheap_band(feat, sig, window=2, w_cos=1.0, w_jac=1.0)
