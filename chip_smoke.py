@@ -9,28 +9,42 @@ Run from the root of a checkout.  Phases, one JSON line each:
   2. build    every CUDA kernel built from the checkout's sources (one nvcc
               per source, all started together), with ptxas's registers
               and shared memory
-  3. kernel   each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at edge cases; times with CUDA
-              events
-  4. parity   resolve() on the card == the sequential host oracle, for
+  3. kernel   each of the four kernels (K1 fused band, K2 banded dot, K3
+              Jaccard band, K4 local attention) against its plain PyTorch
+              version on the card, at full size and at edge cases; times
+              with CUDA events (median), beside the bound and, for K4, the
+              library calls scaled_dot_product_attention (no softcap) and
+              flex_attention
+  4. bands    the kernel entry point ``kernels.ops`` on the system's own
+              data: the 1.4M-record corpus in r=8 shards, each sorted;
+              K2 -> cosine equals ``window.band_scores``, K1 equals
+              w_cos*cos(K2) + w_jac*K3, and K1 timed against K2 + K3
+  5. attention  ``kernels.ops.local_attn`` at one sliding-window layer of
+              Mixtral-8x22B and of Gemma-2-9B (8k prefill, bf16)
+  6. parity   resolve() on the card == the sequential host oracle, for
               srp/repsn/jobsn x scan/pallas at n=200,000
-  5. main     the main path at full size: the paper's 1.4M-record corpus,
-              w=10, r=8, repsn hops=7, vmap runner, balanced partitioner,
-              pallas band engine, emit="pairs", the paper's cascade, auto
-              caps — blocked pairs, zero overflow, kernel launches, and the
-              matched set equal to the scan engine's
+  7. main     the resolve main path at full size: the paper's 1.4M-record
+              corpus, w=10, r=8, repsn hops=7, vmap runner, balanced
+              partitioner, pallas band engine, emit="pairs", the paper's
+              cascade, auto caps — blocked pairs, zero overflow, kernel
+              launches, and the matched set equal to the scan engine's
 
-then the kernel table ``{"kernels": [...]}``, the card line, and the last
-line ``{"ok": true, "device": {...}}``.  Every phase raises on failure, so
-the script exits non-zero and prints no result line.  It exits non-zero
-without a CUDA card, and where ``src/repro_torch`` is not beside it.
+Phases 4, 5 and 7 each set every launch count to 0 just before they drive
+their path and read the counts just after; each raises if a kernel of its
+path was not launched.  Then come the kernel table ``{"kernels": [...]}``,
+the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
+phase raises on failure, so the script exits non-zero and prints no result
+line.  It exits non-zero without a CUDA card, and where ``src/repro_torch``
+is not beside it.
 
 TF32 is switched off for matmuls and cuDNN (the cascade gate's slack is
-GATE_EPS = 1e-5; K1 itself uses plain IEEE f32 FMAs).
+GATE_EPS = 1e-5, K4's f32 tolerance 2e-5; the kernels use plain IEEE f32
+FMAs).
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -39,15 +53,34 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s and f32 (non-tensor) ops/s
+# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, f32 (non-tensor) ops/s
+# and bf16 tensor-core ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+BOUND_BASIS = ("H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s f32 "
+               "non-tensor, 989 TFLOP/s bf16 dense tensor")
 
 N_FULL = 1_400_000          # paper §5.1: 1.4M publication records
 N_PARITY = 200_000
 N_KEYS = 26 ** 3            # three-letter title-prefix keys
 W, R, HOPS = 10, 8, 7
 KERNEL_TOL = 1e-5           # tests/test_kernels.py's fused-band tolerance
+# tests/test_kernels.py's (rtol, atol) for K2-K4, held at the edge cases
+TOL = {"banded_sim/f32": (1e-5, 1e-4), "banded_sim/bf16": (2e-2, 2e-1),
+       "jaccard_band": (1e-6, 1e-6),
+       "local_attn/f32": (2e-5, 2e-5), "local_attn/bf16": (3e-2, 3e-2)}
+# K4 bf16 at the model shapes (window 4096): outputs are ~0.03, so the
+# edge cases' 3e-2 would pass an error the size of the value.  Kernel and
+# plain version both accumulate in f32 and round once to bf16, so they
+# differ by at most one bf16 ulp (<= 2**-7 of the value): rtol 1e-2, and
+# atol 2e-3, twice the largest error read at these shapes (9.8e-4).
+TOL_ATTN_MODEL = (1e-2, 2e-3)
+# K4 at full size: one sliding-window layer's query heads at an 8k prefill
+# (src/repro/configs/archs.py): (label, BH, S, D, window, softcap)
+ATTN_SHAPES = (("mixtral-8x22b", 48, 8192, 128, 4096, 0.0),
+               ("gemma2-9b", 16, 8192, 256, 4096, 50.0))
+ATTN_HEADS_CHECKED = 4      # the plain K4 materializes (heads, S, S) f32
 
 
 def emit(obj) -> None:
@@ -132,27 +165,19 @@ def _band_inputs(s, m, f, words, seed, *, zero_sig=False):
 
 
 def _check_band(feat, sig, window, w_cos, w_jac, label):
-    import torch
     from repro_torch.kernels import ops
-    got = ops.fused_cheap_band(feat, sig, window=window, w_cos=w_cos,
-                               w_jac=w_jac)
-    want = ops.fused_cheap_band_ref(feat, sig, window=window, w_cos=w_cos,
-                                    w_jac=w_jac)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not err <= KERNEL_TOL or got.shape != want.shape:
-        raise AssertionError(f"fused_band {label}: max abs err {err} > "
-                             f"{KERNEL_TOL} (shape {tuple(got.shape)})")
-    return err
+    kw = dict(window=window, w_cos=w_cos, w_jac=w_jac)
+    return _hold("fused_band", ops.fused_cheap_band(feat, sig, **kw),
+                 ops.fused_cheap_band_ref(feat, sig, **kw), (0.0, KERNEL_TOL),
+                 label)
 
 
-def phase_kernel():
+def _kernel_fused_band(feat, sig):
     """K1 against its plain version at the main path's shapes and at edge
     cases; times at the main shape."""
-    import torch
     from repro_torch.kernels import ops
-    s, m, f, words, window = R, N_FULL + W - 1, 32, 8, W - 1
-    feat, sig = _band_inputs(s, m, f, words, 0)
+    s, m, f = feat.shape
+    words, window = sig.shape[2], W - 1
     errs = {"main": _check_band(feat, sig, window, 0.25, 0.25, "main")}
     edge = [  # (label, S, M, F, W, window, w_cos, w_jac, zero_sig)
         ("m_not_tile_multiple", 3, 1000, 32, 8, 9, 0.5, 0.5, False),
@@ -175,26 +200,423 @@ def phase_kernel():
                                              w_cos=0.25, w_jac=0.25)
     kernel_ms = cuda_ms(run, reps=50)
     plain_ms = cuda_ms(plain, reps=5, warm=1)
-    in_bytes = feat.numel() * 4 + sig.numel() * 4
-    out_bytes = s * m * window * 4
-    pairs = s * (m * window - window * (window + 1) // 2)
-    ops_count = pairs * (2 * f + 6 * words)
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_count / F32_OPS_PER_S * 1e3
     rec = {"phase": "kernel", "name": "fused_band",
            "shape": {"S": s, "M": m, "F": f, "W": words, "window": window},
            "max_abs_err": errs, "tol": KERNEL_TOL,
            "ms": kernel_ms, "plain_ms": plain_ms,
-           "bytes": in_bytes + out_bytes, "ops": ops_count,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bound_basis": "H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s "
-                          "f32 non-tensor",
+           **_bound(feat.numel() * 4 + sig.numel() * 4 + s * m * window * 4,
+                    _band_pairs(s, m, window) * (2 * f + 6 * words),
+                    F32_OPS_PER_S),
            "library_ms": None}
     emit(rec)
+    return rec
+
+
+def _hold(name, got, want, tol, label) -> float:
+    """Max abs error of a kernel's result against its plain version; raises
+    where |got - want| > atol + rtol*|want|, on a non-finite value, or on a
+    shape or dtype mismatch."""
+    import torch
+    torch.cuda.synchronize()
+    rtol, atol = tol
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name} {label}: {tuple(got.shape)} "
+                             f"{got.dtype} vs plain {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if not got.numel():
+        return 0.0
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    worst = float(err.max())
+    if not bool(torch.isfinite(g).all()) or \
+            bool((err > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"{name} {label}: max abs err {worst} beyond "
+                             f"rtol {rtol}, atol {atol}")
+    return worst
+
+
+def _randn(shape, seed, dtype=None):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda")
+    return x if dtype is None else x.to(dtype)
+
+
+def _bound(n_bytes, n_ops, ops_per_s) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak rate for their type."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ops_per_s * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_basis": BOUND_BASIS}
+
+
+def _band_pairs(s, m, window) -> int:
+    return s * (m * window - window * (window + 1) // 2)
+
+
+def _kernel_banded_sim(feat):
+    """K2 against its plain version at the main shape (f32) and at the edge
+    cases of tests/test_kernels.py (bf16 among them); times at the main
+    shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    s, m, f = feat.shape
+    window = W - 1
+    errs = {"main": _hold("banded_sim", ops.banded_dot_band(feat,
+                                                            window=window),
+                          ref.banded_sim_ref(feat, window=window),
+                          TOL["banded_sim/f32"], "main")}
+    edge = [  # (label, S, M, F, window, dtype)
+        ("m_not_tile_multiple", 3, 1000, 32, 9, torch.float32),
+        ("window_eq_band_block", 1, 700, 32, 256, torch.float32),
+        ("m_below_window", 1, 8, 16, 16, torch.float32),
+        ("f256_window200", 1, 1024, 256, 200, torch.float32),
+        ("bf16", 8, 1000, 32, 9, torch.bfloat16),
+        ("bf16_f128_window200", 1, 1024, 128, 200, torch.bfloat16),
+    ]
+    for label, es, em, ef, ewin, dt in edge:
+        x = _randn((es, em, ef), 4, dt)
+        tol = TOL["banded_sim/bf16" if dt == torch.bfloat16
+                  else "banded_sim/f32"]
+        errs[label] = _hold("banded_sim", ops.banded_dot_band(x, window=ewin),
+                            ref.banded_sim_ref(x, window=ewin), tol, label)
+    ms = cuda_ms(lambda: ops.banded_dot_band(feat, window=window), reps=50)
+    plain_ms = cuda_ms(lambda: ref.banded_sim_ref(feat, window=window),
+                       reps=5, warm=1)
+    rec = {"phase": "kernel", "name": "banded_sim",
+           "shape": {"S": s, "M": m, "F": f, "window": window,
+                     "dtype": "float32"},
+           "max_abs_err": errs, "tol": {k: v for k, v in TOL.items()
+                                        if k.startswith("banded_sim")},
+           "ms": ms, "plain_ms": plain_ms,
+           **_bound(feat.numel() * 4 + s * m * window * 4,
+                    _band_pairs(s, m, window) * 2 * f, F32_OPS_PER_S),
+           "library_ms": None}
+    emit(rec)
+    return rec
+
+
+def _kernel_jaccard_band(sig):
+    """K3 against its plain version at the main shape and at edge cases
+    (all-zero signatures give 0.0); times at the main shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    s, m, words = sig.shape
+    window = W - 1
+    tol = TOL["jaccard_band"]
+    errs = {"main": _hold("jaccard_band", ops.jaccard_band(sig,
+                                                           window=window),
+                          ref.jaccard_band_ref(sig, window=window), tol,
+                          "main")}
+    edge = [  # (label, S, M, W, window, all-zero signatures)
+        ("m130_words2", 1, 130, 2, 8, False),
+        ("words16", 1, 192, 16, 32, False),
+        ("m_below_window", 1, 8, 4, 16, False),
+        ("window_eq_band_block", 1, 700, 8, 256, False),
+        ("all_zero_signatures", 2, 513, 8, 9, True),
+    ]
+    for label, es, em, ew, ewin, zero in edge:
+        _, x = _band_inputs(es, max(em, 2), 2, ew, 5, zero_sig=zero)
+        x = x[:, :em].contiguous()
+        got = ops.jaccard_band(x, window=ewin)
+        errs[label] = _hold("jaccard_band", got,
+                            ref.jaccard_band_ref(x, window=ewin), tol, label)
+        if zero and bool(got.any()):
+            raise AssertionError("jaccard_band: empty vs empty is not 0.0")
+    ms = cuda_ms(lambda: ops.jaccard_band(sig, window=window), reps=50)
+    plain_ms = cuda_ms(lambda: ref.jaccard_band_ref(sig, window=window),
+                       reps=5, warm=1)
+    # per word: and, or, two popcounts, two adds (int32, counted at the f32
+    # non-tensor rate)
+    rec = {"phase": "kernel", "name": "jaccard_band",
+           "shape": {"S": s, "M": m, "W": words, "window": window},
+           "max_abs_err": errs, "tol": tol,
+           "ms": ms, "plain_ms": plain_ms,
+           **_bound(sig.numel() * 4 + s * m * window * 4,
+                    _band_pairs(s, m, window) * 6 * words, F32_OPS_PER_S),
+           "library_ms": None}
+    emit(rec)
+    return rec
+
+
+def _kept_pairs(bh, s, window) -> int:
+    """(query, key) pairs the window keeps: sum over qp of min(qp+1, w)."""
+    w = min(window, s)
+    return bh * (w * (w + 1) // 2 + (s - w) * w)
+
+
+def _attn_plain(q, k, v, window, softcap):
+    """The plain K4 over all heads, ATTN_HEADS_CHECKED heads at a time (its
+    (heads, S, S) scores would not fit the card at once)."""
+    import torch
+    from repro_torch.kernels import ref
+    h = ATTN_HEADS_CHECKED
+    return torch.cat([ref.local_attention_ref(
+        q[i:i + h], k[i:i + h], v[i:i + h], window=window, softcap=softcap)
+        for i in range(0, q.shape[0], h)])
+
+
+def _sdpa(q, k, v, window):
+    """The library yardstick: scaled_dot_product_attention with the boolean
+    band mask (never on a path of the port)."""
+    import torch
+    import torch.nn.functional as F
+    s = q.shape[1]
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=mask)[0]
+
+
+def _flex(q, k, v, window, softcap):
+    """The library yardstick that also takes the softcap: flex_attention,
+    compiled, with the band as a block mask and the cap as a score_mod
+    (never on a path of the port).  None where this torch has none."""
+    import torch
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+    except ImportError:
+        return None
+    s = q.shape[1]
+    band = create_block_mask(
+        lambda b, h, qi, ki: (ki <= qi) & (qi - ki < window),
+        B=None, H=None, Q_LEN=s, KV_LEN=s, device=q.device)
+    cap = (lambda score, b, h, qi, ki:
+           softcap * torch.tanh(score / softcap)) if softcap else None
+    fn = torch.compile(flex_attention, dynamic=False)
+    q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
+    return lambda: fn(q4, k4, v4, score_mod=cap, block_mask=band)[0]
+
+
+def _library(run, out, h):
+    """(ms, max abs error against the kernel's first h heads) of a library
+    yardstick ``run``; (None, None) where there is none."""
+    if run is None:
+        return None, None
+    err = float((run()[:h].float() - out[:h].float()).abs().max())
+    return cuda_ms(run, reps=20), err
+
+
+def _must_reject(name, got, wrong, tol, label) -> float:
+    """Max abs error of ``got`` against a deliberately wrong plain result;
+    raises unless ``tol`` rejects it, so a tolerance shown to pass the
+    kernel is also shown to fail a kernel with that fault."""
+    rtol, atol = tol
+    g, w = got.float(), wrong.float()
+    err = (g - w).abs()
+    if not bool((err > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"{name} {label}: tolerance {tol} does not "
+                             f"reject the faulty plain result (max abs err "
+                             f"{float(err.max())})")
+    return float(err.max())
+
+
+def _kernel_local_attn():
+    """K4 against its plain version at the edge cases of
+    tests/test_kernels.py (f32 and bf16) and at the two model shapes (bf16;
+    the first ATTN_HEADS_CHECKED heads compared, heads being independent,
+    at TOL_ATTN_MODEL, which must also reject the plain version with its
+    window one key short); times at the model shapes, beside SDPA (no
+    softcap) and flex_attention."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    errs = {}
+    edge = [  # (label, BH, S, D, window, softcap)
+        ("bh4_w128", 4, 512, 64, 128, 0.0),
+        ("d128_w256", 2, 1024, 128, 256, 0.0),
+        ("window_not_block_multiple", 2, 512, 64, 100, 0.0),
+        ("window_eq_s", 1, 256, 128, 256, 0.0),
+        ("bh3_w384", 3, 768, 64, 384, 0.0),
+        ("softcap", 2, 256, 64, 128, 20.0),
+        ("window_over_s_ragged_tile", 1, 100, 64, 1000, 0.0),
+        ("d256_softcap", 2, 512, 256, 300, 50.0),
+    ]
+    for label, bh, s, d, window, cap in edge:
+        for dt, key in ((torch.float32, "local_attn/f32"),
+                        (torch.bfloat16, "local_attn/bf16")):
+            q, k, v = (_randn((bh, s, d), 6 + j, dt) for j in range(3))
+            errs[f"{label}/{key.split('/')[1]}"] = _hold(
+                "local_attn",
+                ops.local_attn(q, k, v, window=window, softcap=cap),
+                ref.local_attention_ref(q, k, v, window=window,
+                                        softcap=cap), TOL[key], label)
+    shapes = []
+    h = ATTN_HEADS_CHECKED
+    for label, bh, s, d, window, cap in ATTN_SHAPES:
+        q, k, v = (_randn((bh, s, d), 9 + j, torch.bfloat16)
+                   for j in range(3))
+        run = lambda: ops.local_attn(q, k, v, window=window, softcap=cap)
+        out = run()
+        errs[label] = _hold(
+            "local_attn", out[:h], ref.local_attention_ref(
+                q[:h], k[:h], v[:h], window=window, softcap=cap),
+            TOL_ATTN_MODEL, label)
+        short_err = _must_reject(
+            "local_attn", out[:h], ref.local_attention_ref(
+                q[:h], k[:h], v[:h], window=window - 1, softcap=cap),
+            TOL_ATTN_MODEL, f"{label} against window - 1")
+        ms = cuda_ms(run, reps=20)
+        plain_ms = cuda_ms(lambda: _attn_plain(q, k, v, window, cap),
+                           reps=3, warm=1)
+        sdpa_ms, sdpa_err = _library(None if cap else _sdpa(q, k, v, window),
+                                     out, h)
+        flex_ms, flex_err = _library(_flex(q, k, v, window, cap), out, h)
+        library = ("scaled_dot_product_attention (bool band mask)"
+                   if sdpa_ms is not None else "flex_attention (compiled)"
+                   if flex_ms is not None else None)
+        shapes.append({
+            "model": label, "shape": {"BH": bh, "S": s, "D": d,
+                                      "window": window, "softcap": cap,
+                                      "dtype": "bfloat16"},
+            "kept_pairs": _kept_pairs(bh, s, window),
+            "ms": ms, "plain_ms": plain_ms,
+            **_bound(4 * bh * s * d * 2, _kept_pairs(bh, s, window) * 4 * d,
+                     BF16_OPS_PER_S),
+            "library_ms": sdpa_ms if sdpa_ms is not None else flex_ms,
+            "library": library,
+            "sdpa_ms": sdpa_ms, "sdpa_vs_kernel_max_abs_err": sdpa_err,
+            "flex_attention_ms": flex_ms,
+            "flex_vs_kernel_max_abs_err": flex_err,
+            "window_minus_1_max_abs_err": short_err})
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    rec = {"phase": "kernel", "name": "local_attn", "max_abs_err": errs,
+           "tol": {**{k: v for k, v in TOL.items()
+                      if k.startswith("local_attn")},
+                   "local_attn/bf16 at model shapes": TOL_ATTN_MODEL},
+           "heads_compared_at_model_shapes": h, "shapes": shapes,
+           **{k: shapes[0][k] for k in ("ms", "plain_ms", "bytes", "ops",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}}
+    emit(rec)
+    return rec
+
+
+def phase_kernel():
+    """Every kernel against its plain version; K1-K3 share the main path's
+    shard tensors (8 shards of 1,400,009 rows, window 9)."""
+    import torch
+    feat, sig = _band_inputs(R, N_FULL + W - 1, 32, 8, 0)
+    recs = {"fused_band": _kernel_fused_band(feat, sig),
+            "banded_sim": _kernel_banded_sim(feat),
+            "jaccard_band": _kernel_jaccard_band(sig)}
     del feat, sig
     torch.cuda.empty_cache()
+    recs["local_attn"] = _kernel_local_attn()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_bands(kernel_recs):
+    """The kernel entry point on the system's own data: the 1.4M-record
+    corpus split into R shards, each sorted by (key, eid), as the band
+    engines see them."""
+    import numpy as np
+    import torch
+    from repro_torch.core import entities as E
+    from repro_torch.core import window as WIN
+    from repro_torch.core.match import CascadeMatcher, Matcher
+    from repro_torch.kernels import ops
+    ents = E.synth_entities(np.random.default_rng(2), N_FULL, n_keys=N_KEYS,
+                            dup_frac=0.2, device="cuda")
+    shards = E.sort_entities(E.map_fields(
+        ents, lambda a: a.reshape((R, -1) + tuple(a.shape[1:]))))
+    feat = shards["payload"]["feat"].contiguous()
+    sig = shards["payload"]["sig"].contiguous()
+    window, w_cos, w_jac = W - 1, 0.25, 0.25
+
+    ops.reset_launch_counts()
+    k2 = ops.banded_dot_band(feat, window=window)
+    k3 = ops.jaccard_band(sig, window=window)
+    k1 = ops.fused_cheap_band(feat, sig, window=window, w_cos=w_cos,
+                              w_jac=w_jac)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if min(launches[n] for n in ("fused_band", "banded_sim",
+                                 "jaccard_band")) <= 0:
+        raise AssertionError(f"bands launched no kernel: {launches}")
+
+    cosine = CascadeMatcher(matchers=(
+        Matcher(field="feat", kind="cosine", weight=1.0),), threshold=0.75)
+    scores, mask = WIN.band_scores(shards, W, cosine)      # (R, w-1, M)
+    cos = torch.clamp(0.5 * (k2 + 1.0), 0.0, 1.0)
+    err_cos = float(torch.where(mask, (scores - cos.transpose(-1, -2))
+                                .abs(), 0.0).max())
+    if not err_cos <= KERNEL_TOL:
+        raise AssertionError(f"bands: clip(0.5*(K2+1)) vs band_scores max "
+                             f"abs err {err_cos} > {KERNEL_TOL}")
+    m = feat.shape[1]
+    d = torch.arange(window, device=feat.device)
+    inb = (torch.arange(m, device=feat.device)[:, None] + 1 + d) < m
+    nonempty = (sig != 0).any(dim=-1)
+    ok = inb & nonempty[..., None]
+    err_fused = float(torch.where(ok, (k1 - (w_cos * cos + w_jac * k3))
+                                  .abs(), 0.0).max())
+    if not err_fused <= KERNEL_TOL:
+        raise AssertionError(f"bands: K1 vs w_cos*cos(K2) + w_jac*K3 max "
+                             f"abs err {err_fused} > {KERNEL_TOL}")
+
+    fused = lambda: ops.fused_cheap_band(feat, sig, window=window,
+                                         w_cos=w_cos, w_jac=w_jac)
+    separate = lambda: (ops.banded_dot_band(feat, window=window),
+                        ops.jaccard_band(sig, window=window))
+    turns = [cuda_ms(fused, 50), cuda_ms(separate, 50),
+             cuda_ms(separate, 50), cuda_ms(fused, 50)]
+    full = {n: kernel_recs[n]["ms"] for n in ("fused_band", "banded_sim",
+                                              "jaccard_band")}
+    rec = {"phase": "bands", "shards": R, "rows_per_shard": m,
+           "window": window, "launches": launches,
+           "pairs_compared": int(mask.sum()),
+           "rows_with_empty_signature": int((~nonempty).sum()),
+           "cos_vs_band_scores_max_abs_err": err_cos,
+           "fused_vs_halves_max_abs_err": err_fused, "tol": KERNEL_TOL,
+           "fused_ms": [turns[0], turns[3]],
+           "separate_ms": [turns[1], turns[2]],
+           "fusion_saves_ms": (turns[1] + turns[2] - turns[0] - turns[3]) / 2,
+           "main_shape": {**full, "separate_ms": full["banded_sim"]
+                          + full["jaccard_band"],
+                          "fusion_saves_ms": full["banded_sim"]
+                          + full["jaccard_band"] - full["fused_band"]}}
+    emit(rec)
     return rec
+
+
+def phase_attention():
+    """``kernels.ops.local_attn`` at one sliding-window layer of each model
+    shape: finite output of q's shape and dtype, the first head equal to
+    the plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    inputs = [(label, [_randn((bh, s, d), 20 + j, torch.bfloat16)
+                       for j in range(3)], window, cap)
+              for label, bh, s, d, window, cap in ATTN_SHAPES]
+    ops.reset_launch_counts()
+    outs = [ops.local_attn(*qkv, window=window, softcap=cap)
+            for _, qkv, window, cap in inputs]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches["local_attn"] <= 0:
+        raise AssertionError(f"attention launched no kernel: {launches}")
+    rows = []
+    for (label, (q, k, v), window, cap), out in zip(inputs, outs):
+        if out.shape != q.shape or out.dtype != q.dtype or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"attention {label}: {tuple(out.shape)} "
+                                 f"{out.dtype}, or non-finite")
+        err = _hold("local_attn", out[:1], ref.local_attention_ref(
+            q[:1], k[:1], v[:1], window=window, softcap=cap),
+            TOL_ATTN_MODEL, label)
+        rows.append({"model": label, "shape": list(q.shape),
+                     "window": window, "softcap": cap,
+                     "head0_max_abs_err": err})
+    emit({"phase": "attention", "launches": launches, "runs": rows})
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def _cfg_kw(**kw):
@@ -363,6 +785,10 @@ def phase_main():
 
 
 def main() -> int:
+    # the flex_attention yardstick compiles; keep its caches in build/
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     try:
         import torch
     except ImportError:
@@ -381,17 +807,29 @@ def main() -> int:
 
     dev = phase_device()
     phase_build()
-    k = phase_kernel()
+    recs = phase_kernel()
+    bands = phase_bands(recs)
+    attention = phase_attention()
     phase_parity()
     main_rec = phase_main()
+    # launches on each kernel's path: K1 on the resolve main path, K2 and
+    # K3 on the entry point's bands, K4 on its attention
+    launches = {"fused_band": main_rec["kernel_launches"]["fused_band"],
+                "banded_sim": bands["launches"]["banded_sim"],
+                "jaccard_band": bands["launches"]["jaccard_band"],
+                "local_attn": attention["launches"]["local_attn"]}
+    replaces = {"fused_band": "src/repro/kernels/fused_band.py:33",
+                "banded_sim": "src/repro/kernels/banded_sim.py:27",
+                "jaccard_band": "src/repro/kernels/jaccard_band.py:22",
+                "local_attn": "src/repro/kernels/local_attn.py:28"}
     emit({"kernels": [{
-        "name": "fused_band", "route": "cuda", "status": "ported",
-        "source": "src/repro_torch/kernels/csrc/fused_band.cu",
-        "replaces": "src/repro/kernels/fused_band.py:33",
-        "launches": main_rec["kernel_launches"]["fused_band"],
-        "max_abs_err": max(k["max_abs_err"].values()),
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]})
+        "name": name, "route": "cuda", "status": "ported",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces[name], "launches": launches[name],
+        "max_abs_err": max(rec["max_abs_err"].values()),
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"]} for name, rec in recs.items()]})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"fused_band": CSRC / "fused_band.cu"}
+SOURCES = {name: CSRC / f"{name}.cu" for name in
+           ("fused_band", "banded_sim", "jaccard_band", "local_attn")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

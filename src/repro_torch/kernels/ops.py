@@ -6,24 +6,40 @@ CUDA tensors it launches the hand-written kernel (built on first use by
 to the kernel's count in ``LAUNCHES``, so a run can show that it went
 through the kernel.
 
-Kernels ported so far (the TPU kernel each replaces):
+The kernels (the TPU kernel each replaces, all in ``repro/kernels/``):
 
-  fused_band   kernels/csrc/fused_band.cu  <-  repro/kernels/fused_band.py
-               ``_fused_band_kernel`` (via ``ops.fused_cheap_band``)
+  fused_band    csrc/fused_band.cu    <- fused_band.py ``_fused_band_kernel``
+                (``fused_cheap_band``; on the resolve path)
+  banded_sim    csrc/banded_sim.cu    <- banded_sim.py ``_banded_sim_kernel``
+                (``banded_dot_band``)
+  jaccard_band  csrc/jaccard_band.cu  <- jaccard_band.py ``_jaccard_kernel``
+                (``jaccard_band``)
+  local_attn    csrc/local_attn.cu    <- local_attn.py ``_local_attn_kernel``
+                (``local_attn``)
+
+The last three are reached only through this module, as in the reference.
+Their plain versions are in ``kernels.ref``.  ``block_i``, ``block_q`` and
+``block_k`` are for parity only: they keep the reference's contracts, so
+that a config fails the same way in both packages, and change no result;
+the kernels pick their own tiles.  ``band_from_tiles`` is for parity only.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict
 
 import torch
 
 from repro_torch.core.match import cosine_sim, jaccard_sig
+from repro_torch.kernels.ref import (banded_sim_ref, jaccard_band_ref,
+                                     local_attention_ref)
 
 # launches per kernel since the last reset (the only global state the
 # port keeps)
-LAUNCHES: Dict[str, int] = {"fused_band": 0}
+LAUNCHES: Dict[str, int] = {"fused_band": 0, "banded_sim": 0,
+                            "jaccard_band": 0, "local_attn": 0}
 
 # a block's dynamic shared memory on Hopper (227 KB of the SM's 256 KB)
 _MAX_SMEM = 232_448
@@ -160,3 +176,189 @@ def fused_cheap_band(feat: torch.Tensor, sig: torch.Tensor, *, window: int,
     else:
         raise ValueError(f"fused_cheap_band: no kernel for {feat.device}")
     return out[0] if unbatched else out
+
+
+def resolve_block_i(m: int, window: int, block_i: int) -> int:
+    """The reference's row-block choice for a band kernel: ``window <=
+    block_i`` or a ``ValueError`` with the reference's text; a block
+    clamped to small M grows back to ``window``."""
+    _window_fits(window, block_i)
+    return max(min(block_i, m), window)
+
+
+def band_from_tiles(tiles: torch.Tensor, *, window: int,
+                    block_i: int) -> torch.Tensor:
+    """(M, 2*Bi) tiles -> (M, window) band (the reference's host gather,
+    for API parity only: nothing in the port calls it, since the port's
+    kernels emit the band directly).
+
+    band[g, d] = tiles[g, (g % Bi) + 1 + d]; entries with global j >= M are
+    zeroed."""
+    m = tiles.shape[0]
+    r = torch.arange(m, device=tiles.device)
+    d = torch.arange(window, device=tiles.device)
+    cols = (r % block_i)[:, None] + 1 + d[None, :]
+    band = torch.take_along_dim(tiles, cols, dim=1)
+    return torch.where((r[:, None] + 1 + d[None, :]) < m, band, 0.0)
+
+
+@functools.cache
+def _lib(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` with the argtypes of its C interface
+    (pointers and the stream as c_void_p, ints as c_int)."""
+    from repro_torch.kernels import build
+    lib = build.load(name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch, smem = {
+        "banded_sim": ([p, p] + [i] * 6 + [p], [i] * 3),
+        "jaccard_band": ([p, p] + [i] * 5 + [p], [i] * 3),
+        "local_attn": ([p] * 4 + [i] * 4 + [f, f, i, p], None),
+    }[name]
+    getattr(lib, f"{name}_launch").restype = ctypes.c_int
+    getattr(lib, f"{name}_launch").argtypes = launch
+    if smem is not None:
+        getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
+        getattr(lib, f"{name}_smem_bytes").argtypes = smem
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+    return lib
+
+
+def _launched(name: str, lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: " + getattr(
+            lib, f"{name}_error_string")(err).decode())
+    LAUNCHES[name] += 1
+
+
+def _launch_band(name: str, x: torch.Tensor, window: int) -> torch.Tensor:
+    """One launch of the band kernel ``name`` (banded_sim or jaccard_band)
+    on (S, M, C) rows, the row tile halved until it fits shared memory."""
+    lib = _lib(name)
+    s, m, c = x.shape
+    if m >= 2**31 or s >= 2**16:
+        raise ValueError(f"{name}: S={s}, M={m} exceed the kernel's grid")
+    smem = getattr(lib, f"{name}_smem_bytes")
+    rows = _ROWS
+    while rows > 1 and smem(rows, window, c) > _MAX_SMEM:
+        rows //= 2
+    if smem(rows, window, c) > _MAX_SMEM:
+        raise ValueError(f"{name}: rows of width {c} with window={window} "
+                         f"do not fit shared memory")
+    out = torch.empty((s, m, window), dtype=torch.float32, device=x.device)
+    extra = [int(x.dtype == torch.bfloat16)] if name == "banded_sim" else []
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = getattr(lib, f"{name}_launch")(
+            x.data_ptr(), out.data_ptr(), s, m, c, window, rows, *extra,
+            stream)
+    _launched(name, lib, err)
+    return out
+
+
+def _band_op(name: str, x: torch.Tensor, window: int, block_i: int,
+             dtypes: tuple, plain) -> torch.Tensor:
+    """(M, C) or (S, M, C) -> (..., M, window) f32 through the plain
+    version on the CPU or the kernel ``name`` on the card."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name} takes (M, C) or (S, M, C), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name} takes {dtypes}, got {x.dtype}")
+    if window < 1:
+        raise ValueError(f"{name}: window={window} < 1")
+    resolve_block_i(x.shape[-2], window, block_i)
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous input")
+    unbatched = x.dim() == 2
+    if unbatched:
+        x = x.unsqueeze(0)
+    if x.device.type == "cpu":
+        out = plain(x, window=window)
+    elif x.device.type == "cuda":
+        out = _launch_band(name, x, window)
+    else:
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    return out[0] if unbatched else out
+
+
+def banded_dot_band(feat: torch.Tensor, *, window: int,
+                    block_i: int = 256) -> torch.Tensor:
+    """Banded <feat_i, feat_j> similarity: (M, F) or (S, M, F) f32 or bf16
+    -> (..., M, window) f32 with ``out[..., i, d] = <feat_i, feat_{i+1+d}>``
+    (raw dot, no clip), zero where i+1+d >= M.  ``block_i`` is for parity
+    only (``window <= block_i``)."""
+    return _band_op("banded_sim", feat, window, block_i,
+                    (torch.float32, torch.bfloat16), banded_sim_ref)
+
+
+def jaccard_band(sig: torch.Tensor, *, window: int,
+                 block_i: int = 256) -> torch.Tensor:
+    """Banded Jaccard over bit signatures: (M, W) or (S, M, W) int32 bit
+    views -> (..., M, window) f32 ``popc(a & b) / max(popc(a | b), 1)``,
+    zero where i+1+d >= M.  Empty vs empty is 0.0, unlike
+    ``fused_cheap_band`` (1.0), as in the reference.  ``block_i`` is for
+    parity only (``window <= block_i``)."""
+    return _band_op("jaccard_band", sig, window, block_i, (torch.int32,),
+                    jaccard_band_ref)
+
+
+_ATTN_HEAD_DIMS = (64, 128, 256)
+
+
+def _launch_local_attn(q, k, v, window, softcap) -> torch.Tensor:
+    bh, s, d = q.shape
+    if d not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"local_attn: the kernel takes head dims "
+                         f"{_ATTN_HEAD_DIMS}, got D={d}")
+    if bh >= 2**16:
+        raise ValueError(f"local_attn: BH={bh} exceeds the kernel's grid")
+    lib = _lib("local_attn")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.local_attn_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+            d, window, 1.0 / math.sqrt(d), float(softcap),
+            int(q.dtype == torch.bfloat16), stream)
+    _launched("local_attn", lib, err)
+    return out
+
+
+def local_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               window: int, block_q: int = 256, block_k: int = 256,
+               softcap: float = 0.0) -> torch.Tensor:
+    """Sliding-window flash attention: (BH, S, D) x3, all f32 or all bf16
+    -> (BH, S, D) in q's dtype.  Key kp is kept for query qp iff
+    qp - window < kp <= qp; scale 1/sqrt(D); optional
+    ``softcap * tanh(s / softcap)``.
+
+    ``window >= 1`` (at 0 every key is masked and the reference's kernel
+    and plain version disagree).  ``block_q``/``block_k`` are for parity
+    only and keep the reference's contract: S must be a multiple of
+    ``min(block_q, block_k, S)``."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"local_attn takes three (BH, S, D) of one shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"local_attn takes f32 or bf16 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if window < 1:
+        raise ValueError(f"local_attn: window={window} < 1 masks every key")
+    s = q.shape[1]
+    blk = min(block_q, block_k, s)
+    if blk < 1 or s % blk:
+        raise ValueError(f"local_attn: S={s} is not a multiple of the "
+                         f"block min(block_q, block_k, S)={blk}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("local_attn needs contiguous inputs")
+    if q.device.type == "cpu":
+        return local_attention_ref(q, k, v, window=window, softcap=softcap)
+    if q.device.type == "cuda":
+        return _launch_local_attn(q, k, v, window, softcap)
+    raise ValueError(f"local_attn: no kernel for {q.device}")

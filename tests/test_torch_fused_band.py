@@ -121,4 +121,4 @@ def test_cpu_path_counts_no_launch():
     tops.reset_launch_counts()
     feat, sig = _port(*_inputs(RNG, 20, 8, 2))
     tops.fused_cheap_band(feat, sig, window=3, w_cos=1.0, w_jac=1.0)
-    assert tops.launch_counts() == {"fused_band": 0}
+    assert tops.launch_counts()["fused_band"] == 0

@@ -14,6 +14,7 @@ from repro_torch import api as TA  # noqa: E402
 from repro_torch.core import entities as TE  # noqa: E402
 from repro_torch.core.match import paper_cascade  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 from _torch_parity import cuda, to_np  # noqa: E402,F401
 
@@ -40,6 +41,86 @@ def test_fused_band_kernel_matches_plain_version(cuda, m, window, w_cos,
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_band"] == before + 1
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=TOL)
+
+
+def _launched_once(name, fn):
+    before = ops.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,f,window,dtype", [
+    (3, 1000, 32, 9, "f32"), (1, 300, 32, 10, "f32"),
+    (1, 128, 256, 128, "f32"), (1, 1024, 256, 200, "f32"),
+    (1, 8, 16, 16, "f32"), (2, 1000, 32, 9, "bf16"),
+    (1, 1024, 128, 200, "bf16")],
+    ids=["shards", "m300", "window-eq-block", "f256-w200", "m-below-window",
+         "bf16", "bf16-w200"])
+def test_banded_sim_kernel_matches_plain_version(cuda, s, m, f, window,
+                                                 dtype):
+    """K2 against its plain version: 1e-5 / atol 1e-4 in f32, 2e-2 / atol
+    2e-1 in bf16 (tests/test_kernels.py's tolerances)."""
+    tol = 1e-5 if dtype == "f32" else 2e-2
+    feat = torch.from_numpy(np.random.default_rng(m + window).normal(
+        size=(s, m, f)).astype(np.float32)).to(cuda)
+    if dtype == "bf16":
+        feat = feat.bfloat16()
+    got = _launched_once("banded_sim", lambda: ops.banded_dot_band(
+        feat, window=window))
+    want = ref.banded_sim_ref(feat, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol,
+                               atol=tol * 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,words,window,zero", [
+    (3, 1000, 8, 9, False), (1, 130, 2, 8, False), (1, 192, 16, 32, False),
+    (1, 8, 4, 16, False), (2, 513, 8, 9, True)],
+    ids=["shards", "m130", "words16", "m-below-window", "all-zero"])
+def test_jaccard_band_kernel_matches_plain_version(cuda, s, m, words,
+                                                   window, zero):
+    """K3 against its plain version (1e-6); all-zero signatures give 0.0."""
+    sig = torch.from_numpy(np.random.default_rng(m).integers(
+        -2**31, 2**31, size=(s, m, words)).astype(np.int32)).to(cuda)
+    if zero:
+        sig.zero_()
+    got = _launched_once("jaccard_band", lambda: ops.jaccard_band(
+        sig, window=window))
+    want = ref.jaccard_band_ref(sig, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-6,
+                               atol=1e-6)
+    if zero:
+        assert not to_np(got).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,s,d,window,softcap", [
+    (4, 512, 64, 128, 0.0), (2, 1024, 128, 256, 0.0),
+    (2, 512, 64, 100, 0.0), (1, 256, 128, 256, 0.0),
+    (3, 768, 64, 384, 0.0), (2, 256, 64, 128, 20.0),
+    (2, 512, 256, 300, 50.0), (1, 100, 64, 1000, 0.0)],
+    ids=["bh4", "d128", "w100", "w-eq-s", "bh3-w384", "softcap", "d256",
+         "ragged-s"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_local_attn_kernel_matches_plain_version(cuda, bh, s, d, window,
+                                                 softcap, dtype):
+    """K4 against its plain version: 2e-5 in f32, 3e-2 in bf16 (TF32 is
+    off for the plain version's einsums)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, tol = (torch.float32, 2e-5) if dtype == "f32" \
+        else (torch.bfloat16, 3e-2)
+    rng = np.random.default_rng(bh * s + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
+        np.float32)).to(cuda).to(tdt) for _ in range(3))
+    got = _launched_once("local_attn", lambda: ops.local_attn(
+        q, k, v, window=window, softcap=softcap))
+    want = ref.local_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(to_np(got.float()), to_np(want.float()),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
