@@ -7,14 +7,17 @@ Run from the root of a checkout.  Phases, one JSON line each:
 
   1. device   the card (nvidia-smi name + power limit), device count
   2. build    every CUDA kernel built from the checkout's sources (one nvcc
-              per source, all started together), with ptxas's registers
-              and shared memory
+              per source, all started together), with ptxas's registers,
+              shared memory and spills; fails without HGMMA in K4's SASS
+              (wgmma emitted) or with a spill in K1 or K4
   3. kernel   each of the four kernels (K1 fused band, K2 banded dot, K3
-              Jaccard band, K4 local attention) against its plain PyTorch
-              version on the card, at full size and at edge cases; times
-              with CUDA events (median), beside the bound and, for K4, the
-              library calls scaled_dot_product_attention (no softcap) and
-              flex_attention
+              Jaccard band, K4 local attention: bf16 on wgmma, f32
+              scalar) against its plain PyTorch version on the card, at
+              full size and at edge cases; times with CUDA events
+              (median), beside the bound; K1's effective TB/s; K4 at the
+              model shapes also with one bf16 part of P (P_lo dropped),
+              and timed in turns with the library calls flex_attention
+              and (no softcap) scaled_dot_product_attention
   4. bands    the kernel entry point ``kernels.ops`` on the system's own
               data: the 1.4M-record corpus in r=8 shards, each sorted;
               K2 -> cosine equals ``window.band_scores``, K1 equals
@@ -134,17 +137,45 @@ def phase_device():
     return info
 
 
+def _spill_bytes(log: str) -> int:
+    """Bytes of spill stores and loads over every kernel in a ptxas -v
+    log ("N bytes spill stores, M bytes spill loads")."""
+    import re
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+
+
+def _sass_count(lib, opcode) -> int:
+    """How often ``opcode`` appears in the SASS of a built library
+    (cuobjdump from the toolkit beside nvcc)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sass.count(opcode)
+
+
 def phase_build():
+    """Every kernel built; raises unless K4's SASS holds HGMMA (wgmma was
+    emitted) and no instantiation of K1 or K4 spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
     total = time.perf_counter() - t0
+    spills = {name: _spill_bytes(b.log) for name, b in built.items()}
+    hgmma = _sass_count(built["local_attn"].path, "HGMMA")
     emit({"phase": "build", "seconds": round(total, 3),
+          "local_attn_sass_hgmma": hgmma, "spill_bytes": spills,
           "kernels": {name: {"seconds": round(b.seconds, 3),
                              "ptxas": [ln.strip() for ln in b.log.splitlines()
                                        if "registers" in ln or "smem" in ln
+                                       or "spill" in ln
                                        or "Compiling entry" in ln]}
                       for name, b in built.items()}})
+    if not hgmma:
+        raise AssertionError("local_attn: no HGMMA in the SASS")
+    if spills["local_attn"] or spills["fused_band"]:
+        raise AssertionError(f"K1/K4 spill registers: {spills}")
 
 
 def _band_inputs(s, m, f, words, seed, *, zero_sig=False):
@@ -186,6 +217,11 @@ def _kernel_fused_band(feat, sig):
         ("all_zero_signatures", 2, 513, 32, 8, 9, 0.5, 0.5, True),
         ("window_eq_band_block", 2, 700, 32, 8, 256, 0.5, 0.5, False),
         ("m_below_window", 1, 5, 32, 8, 9, 0.5, 0.5, False),
+        # spans not 16-byte aligned (4-byte loads, scalar store head/tail)
+        ("f33_w3_unaligned", 2, 1001, 33, 3, 9, 0.5, 0.5, False),
+        ("window7", 2, 1000, 32, 8, 7, 0.5, 0.5, False),
+        # rows wider than the registers hold (read from shared memory)
+        ("f64_w16_wide_rows", 2, 999, 64, 16, 9, 0.5, 0.5, False),
     ]
     for label, es, em, ef, ew, ewin, wc, wj, zs in edge:
         ef_, es_ = _band_inputs(es, em, max(ef, 2), max(ew, 1), 1,
@@ -200,11 +236,13 @@ def _kernel_fused_band(feat, sig):
                                              w_cos=0.25, w_jac=0.25)
     kernel_ms = cuda_ms(run, reps=50)
     plain_ms = cuda_ms(plain, reps=5, warm=1)
+    n_bytes = feat.numel() * 4 + sig.numel() * 4 + s * m * window * 4
     rec = {"phase": "kernel", "name": "fused_band",
            "shape": {"S": s, "M": m, "F": f, "W": words, "window": window},
            "max_abs_err": errs, "tol": KERNEL_TOL,
            "ms": kernel_ms, "plain_ms": plain_ms,
-           **_bound(feat.numel() * 4 + sig.numel() * 4 + s * m * window * 4,
+           "effective_tb_per_s": n_bytes / kernel_ms / 1e9,
+           **_bound(n_bytes,
                     _band_pairs(s, m, window) * (2 * f + 6 * words),
                     F32_OPS_PER_S),
            "library_ms": None}
@@ -392,13 +430,23 @@ def _flex(q, k, v, window, softcap):
     return lambda: fn(q4, k4, v4, score_mod=cap, block_mask=band)[0]
 
 
-def _library(run, out, h):
-    """(ms, max abs error against the kernel's first h heads) of a library
-    yardstick ``run``; (None, None) where there is none."""
+def _library_err(run, out, h):
+    """Max abs error of a library yardstick ``run`` against the kernel's
+    first h heads; None where there is no such call."""
     if run is None:
-        return None, None
-    err = float((run()[:h].float() - out[:h].float()).abs().max())
-    return cuda_ms(run, reps=20), err
+        return None
+    return float((run()[:h].float() - out[:h].float()).abs().max())
+
+
+def _in_turns(fns, reps=20):
+    """Median ms of each named call, timed in turns: each in order, then
+    each in reverse (kernel, library, library, kernel), so that a drift of
+    the card's clock falls on both.  {name: [ms, ms]}."""
+    order = list(fns) + list(reversed(fns))
+    out = {name: [] for name, _ in fns}
+    for name, fn in order:
+        out[name].append(cuda_ms(fn, reps=reps))
+    return out
 
 
 def _must_reject(name, got, wrong, tol, label) -> float:
@@ -415,13 +463,22 @@ def _must_reject(name, got, wrong, tol, label) -> float:
     return float(err.max())
 
 
+def _within(got, want, tol) -> bool:
+    rtol, atol = tol
+    g, w = got.float(), want.float()
+    return not bool(((g - w).abs() > atol + rtol * w.abs()).any())
+
+
 def _kernel_local_attn():
     """K4 against its plain version at the edge cases of
-    tests/test_kernels.py (f32 and bf16) and at the two model shapes (bf16;
-    the first ATTN_HEADS_CHECKED heads compared, heads being independent,
-    at TOL_ATTN_MODEL, which must also reject the plain version with its
-    window one key short); times at the model shapes, beside SDPA (no
-    softcap) and flex_attention."""
+    tests/test_kernels.py and the tensor-core kernel's corners (f32 through
+    the scalar kernel, bf16 through the wgmma kernel) and at the two model
+    shapes (bf16; the first ATTN_HEADS_CHECKED heads compared, heads being
+    independent, at TOL_ATTN_MODEL, which must also reject the plain
+    version with its window one key short).  At the model shapes the bf16
+    kernel with one bf16 part of P (P_lo dropped) is held to the same
+    tolerance and its error recorded, and K4 is timed in turns with
+    flex_attention and (no softcap) SDPA."""
     import torch
     from repro_torch.kernels import ops, ref
     errs = {}
@@ -434,6 +491,8 @@ def _kernel_local_attn():
         ("softcap", 2, 256, 64, 128, 20.0),
         ("window_over_s_ragged_tile", 1, 100, 64, 1000, 0.0),
         ("d256_softcap", 2, 512, 256, 300, 50.0),
+        ("window_1", 2, 256, 128, 1, 0.0),
+        ("d256_s200_softcap", 2, 200, 256, 150, 30.0),
     ]
     for label, bh, s, d, window, cap in edge:
         for dt, key in ((torch.float32, "local_attn/f32"),
@@ -451,20 +510,42 @@ def _kernel_local_attn():
                    for j in range(3))
         run = lambda: ops.local_attn(q, k, v, window=window, softcap=cap)
         out = run()
-        errs[label] = _hold(
-            "local_attn", out[:h], ref.local_attention_ref(
-                q[:h], k[:h], v[:h], window=window, softcap=cap),
-            TOL_ATTN_MODEL, label)
+        want = ref.local_attention_ref(q[:h], k[:h], v[:h], window=window,
+                                       softcap=cap)
+        errs[label] = _hold("local_attn", out[:h], want, TOL_ATTN_MODEL,
+                            label)
         short_err = _must_reject(
             "local_attn", out[:h], ref.local_attention_ref(
                 q[:h], k[:h], v[:h], window=window - 1, softcap=cap),
             TOL_ATTN_MODEL, f"{label} against window - 1")
-        ms = cuda_ms(run, reps=20)
+        single = ops._launch_local_attn(q[:h], k[:h], v[:h], window, cap,
+                                        p_split=False)
+        split = ops._launch_local_attn(q[:h], k[:h], v[:h], window, cap,
+                                       p_split=True)
+        torch.cuda.synchronize()
+        p_variants = {
+            "single_bf16_max_abs_err": float((single.float() - want.float())
+                                             .abs().max()),
+            "single_bf16_passes_tol": _within(single, want, TOL_ATTN_MODEL),
+            "split_max_abs_err": float((split.float() - want.float())
+                                       .abs().max()),
+            "split_passes_tol": _within(split, want, TOL_ATTN_MODEL)}
+        del single, split
         plain_ms = cuda_ms(lambda: _attn_plain(q, k, v, window, cap),
                            reps=3, warm=1)
-        sdpa_ms, sdpa_err = _library(None if cap else _sdpa(q, k, v, window),
-                                     out, h)
-        flex_ms, flex_err = _library(_flex(q, k, v, window, cap), out, h)
+        flex = _flex(q, k, v, window, cap)
+        sdpa = None if cap else _sdpa(q, k, v, window)
+        flex_err = _library_err(flex, out, h)
+        sdpa_err = _library_err(sdpa, out, h)
+        fns = [("kernel", run)] + [(n, fn) for n, fn in
+                                   (("flex_attention", flex), ("sdpa", sdpa))
+                                   if fn is not None]
+        turns = _in_turns(fns)
+        ms = statistics.mean(turns["kernel"])
+        flex_ms = statistics.mean(turns["flex_attention"]) \
+            if flex is not None else None
+        sdpa_ms = statistics.mean(turns["sdpa"]) if sdpa is not None \
+            else None
         library = ("scaled_dot_product_attention (bool band mask)"
                    if sdpa_ms is not None else "flex_attention (compiled)"
                    if flex_ms is not None else None)
@@ -473,7 +554,7 @@ def _kernel_local_attn():
                                       "window": window, "softcap": cap,
                                       "dtype": "bfloat16"},
             "kept_pairs": _kept_pairs(bh, s, window),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "turns_ms": turns,
             **_bound(4 * bh * s * d * 2, _kept_pairs(bh, s, window) * 4 * d,
                      BF16_OPS_PER_S),
             "library_ms": sdpa_ms if sdpa_ms is not None else flex_ms,
@@ -481,10 +562,13 @@ def _kernel_local_attn():
             "sdpa_ms": sdpa_ms, "sdpa_vs_kernel_max_abs_err": sdpa_err,
             "flex_attention_ms": flex_ms,
             "flex_vs_kernel_max_abs_err": flex_err,
-            "window_minus_1_max_abs_err": short_err})
-        del q, k, v, out
+            "kernel_beats_sdpa": None if sdpa_ms is None else ms < sdpa_ms,
+            "window_minus_1_max_abs_err": short_err, **p_variants})
+        del q, k, v, out, want
         torch.cuda.empty_cache()
     rec = {"phase": "kernel", "name": "local_attn", "max_abs_err": errs,
+           "design": {"bfloat16": "wgmma", "float32": "scalar"},
+           "p_split": ops.ATTN_P_SPLIT,
            "tol": {**{k: v for k, v in TOL.items()
                       if k.startswith("local_attn")},
                    "local_attn/bf16 at model shapes": TOL_ATTN_MODEL},

@@ -4,7 +4,10 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``; nothing here
 includes PyTorch's headers, so a build takes seconds.  Libraries go to the
 repository's ``build/kernels/`` directory (listed in ``.gitignore``) and
-are rebuilt whenever their source is newer.  No fast math: division and
+are rebuilt whenever their source or a shared header is newer.  The
+tensor-core kernel (``local_attn.cu``) encodes its TMA descriptors with
+``cuTensorMapEncodeTiled``, reached through the runtime's driver entry
+point, so nothing links against ``libcuda``.  No fast math: division and
 FMA contraction stay IEEE, which the cascade gate's ``GATE_EPS`` slack
 depends on.
 
@@ -77,9 +80,14 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, BuildInfo]:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     path = lib_path(name)
-    return not path.exists() or \
-        path.stat().st_mtime < SOURCES[name].stat().st_mtime
+    if not path.exists():
+        return True
+    built = path.stat().st_mtime
+    return any(built < src.stat().st_mtime
+               for src in (SOURCES[name], *CSRC.glob("*.cuh")))
 
 
 @functools.cache

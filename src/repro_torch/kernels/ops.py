@@ -15,7 +15,8 @@ The kernels (the TPU kernel each replaces, all in ``repro/kernels/``):
   jaccard_band  csrc/jaccard_band.cu  <- jaccard_band.py ``_jaccard_kernel``
                 (``jaccard_band``)
   local_attn    csrc/local_attn.cu    <- local_attn.py ``_local_attn_kernel``
-                (``local_attn``)
+                (``local_attn``; bf16 on the tensor cores with wgmma and
+                TMA, f32 scalar)
 
 The last three are reached only through this module, as in the reference.
 Their plain versions are in ``kernels.ref``.  ``block_i``, ``block_q`` and
@@ -43,7 +44,10 @@ LAUNCHES: Dict[str, int] = {"fused_band": 0, "banded_sim": 0,
 
 # a block's dynamic shared memory on Hopper (227 KB of the SM's 256 KB)
 _MAX_SMEM = 232_448
-_ROWS = 256
+# first row tile of each band kernel, halved until it fits _MAX_SMEM; K1
+# runs fastest at 128 rows (about seven blocks an SM, so one block's
+# loads overlap another's compute; PERF.md)
+_ROWS = {"fused_band": 128, "banded_sim": 256, "jaccard_band": 256}
 
 
 def reset_launch_counts() -> None:
@@ -105,52 +109,6 @@ def _check_band_inputs(feat: torch.Tensor, sig: torch.Tensor) -> None:
         raise ValueError("fused_cheap_band needs contiguous inputs")
 
 
-@functools.cache
-def _fused_band_lib() -> ctypes.CDLL:
-    from repro_torch.kernels import build
-    lib = build.load("fused_band")
-    lib.fused_band_launch.restype = ctypes.c_int
-    lib.fused_band_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 +
-        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    lib.fused_band_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_band_smem_bytes.argtypes = [ctypes.c_int] * 6
-    lib.fused_band_error_string.restype = ctypes.c_char_p
-    lib.fused_band_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def _launch_fused_band(feat, sig, window, w_cos, w_jac) -> torch.Tensor:
-    lib = _fused_band_lib()
-    s, m, f = feat.shape
-    words = sig.shape[2]
-    if m >= 2**31 or s >= 2**16:
-        raise ValueError(f"fused_cheap_band: S={s}, M={m} exceed the "
-                         f"kernel's grid")
-    use_cos, use_jac = int(w_cos > 0.0), int(w_jac > 0.0)
-    rows = _ROWS
-    while rows > 1 and lib.fused_band_smem_bytes(
-            rows, window, f, words, use_cos, use_jac) > _MAX_SMEM:
-        rows //= 2
-    if lib.fused_band_smem_bytes(rows, window, f, words, use_cos,
-                                 use_jac) > _MAX_SMEM:
-        raise ValueError(f"fused_cheap_band: rows of F={f} and W={words} "
-                         f"with window={window} do not fit shared memory")
-    out = torch.empty((s, m, window), dtype=torch.float32,
-                      device=feat.device)
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
-    with torch.cuda.device(feat.device):
-        err = lib.fused_band_launch(
-            feat.data_ptr(), sig.data_ptr(), out.data_ptr(), s, m, f, words,
-            window, rows, float(w_cos), float(w_jac), use_cos, use_jac,
-            stream)
-    if err != 0:
-        raise RuntimeError("fused_band kernel launch failed: "
-                           + lib.fused_band_error_string(err).decode())
-    LAUNCHES["fused_band"] += 1
-    return out
-
-
 def fused_cheap_band(feat: torch.Tensor, sig: torch.Tensor, *, window: int,
                      w_cos: float, w_jac: float,
                      block_i: int = 256) -> torch.Tensor:
@@ -172,7 +130,11 @@ def fused_cheap_band(feat: torch.Tensor, sig: torch.Tensor, *, window: int,
         out = fused_cheap_band_ref(feat, sig, window=window, w_cos=w_cos,
                                    w_jac=w_jac)
     elif feat.device.type == "cuda":
-        out = _launch_fused_band(feat, sig, window, w_cos, w_jac)
+        use_cos, use_jac = int(w_cos > 0.0), int(w_jac > 0.0)
+        out = _launch_band("fused_band", (feat, sig), window,
+                           extra=(float(w_cos), float(w_jac), use_cos,
+                                  use_jac),
+                           smem_extra=(use_cos, use_jac))
     else:
         raise ValueError(f"fused_cheap_band: no kernel for {feat.device}")
     return out[0] if unbatched else out
@@ -210,9 +172,10 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch, smem = {
+        "fused_band": ([p] * 3 + [i] * 6 + [f, f, i, i, p], [i] * 6),
         "banded_sim": ([p, p] + [i] * 6 + [p], [i] * 3),
         "jaccard_band": ([p, p] + [i] * 5 + [p], [i] * 3),
-        "local_attn": ([p] * 4 + [i] * 4 + [f, f, i, p], None),
+        "local_attn": ([p] * 4 + [i] * 4 + [f, f, i, i, p], None),
     }[name]
     getattr(lib, f"{name}_launch").restype = ctypes.c_int
     getattr(lib, f"{name}_launch").argtypes = launch
@@ -231,27 +194,33 @@ def _launched(name: str, lib: ctypes.CDLL, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def _launch_band(name: str, x: torch.Tensor, window: int) -> torch.Tensor:
-    """One launch of the band kernel ``name`` (banded_sim or jaccard_band)
-    on (S, M, C) rows, the row tile halved until it fits shared memory."""
+def _launch_band(name: str, inputs: tuple, window: int, *,
+                 extra: tuple = (), smem_extra: tuple = ()) -> torch.Tensor:
+    """One launch of the band kernel ``name`` on (S, M, C) inputs (one for
+    banded_sim and jaccard_band, feat and sig for fused_band), the row
+    tile halved until it fits shared memory.  The C interface is
+    ``launch(*inputs, out, S, M, *widths, window, rows, *extra, stream)``
+    and ``smem_bytes(rows, window, *widths, *smem_extra)``."""
     lib = _lib(name)
-    s, m, c = x.shape
+    s, m = inputs[0].shape[:2]
+    widths = [x.shape[2] for x in inputs]
     if m >= 2**31 or s >= 2**16:
         raise ValueError(f"{name}: S={s}, M={m} exceed the kernel's grid")
     smem = getattr(lib, f"{name}_smem_bytes")
-    rows = _ROWS
-    while rows > 1 and smem(rows, window, c) > _MAX_SMEM:
+    rows = _ROWS[name]
+    while rows > 1 and smem(rows, window, *widths,
+                            *smem_extra) > _MAX_SMEM:
         rows //= 2
-    if smem(rows, window, c) > _MAX_SMEM:
-        raise ValueError(f"{name}: rows of width {c} with window={window} "
-                         f"do not fit shared memory")
-    out = torch.empty((s, m, window), dtype=torch.float32, device=x.device)
-    extra = [int(x.dtype == torch.bfloat16)] if name == "banded_sim" else []
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    if smem(rows, window, *widths, *smem_extra) > _MAX_SMEM:
+        raise ValueError(f"{name}: rows of widths {widths} with "
+                         f"window={window} do not fit shared memory")
+    out = torch.empty((s, m, window), dtype=torch.float32,
+                      device=inputs[0].device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(out.device):
         err = getattr(lib, f"{name}_launch")(
-            x.data_ptr(), out.data_ptr(), s, m, c, window, rows, *extra,
-            stream)
+            *(x.data_ptr() for x in inputs), out.data_ptr(), s, m, *widths,
+            window, rows, *extra, stream)
     _launched(name, lib, err)
     return out
 
@@ -276,7 +245,9 @@ def _band_op(name: str, x: torch.Tensor, window: int, block_i: int,
     if x.device.type == "cpu":
         out = plain(x, window=window)
     elif x.device.type == "cuda":
-        out = _launch_band(name, x, window)
+        extra = (int(x.dtype == torch.bfloat16),) \
+            if name == "banded_sim" else ()
+        out = _launch_band(name, (x,), window, extra=extra)
     else:
         raise ValueError(f"{name}: no kernel for {x.device}")
     return out[0] if unbatched else out
@@ -304,9 +275,14 @@ def jaccard_band(sig: torch.Tensor, *, window: int,
 
 
 _ATTN_HEAD_DIMS = (64, 128, 256)
+# bf16 K4 splits P into two bf16 parts for P.V on the tensor cores: one
+# part alone rounds P to 8 bits, 0.0156 off the plain version at the
+# Gemma-2 layer (chip_smoke.py), which the model-shape tolerance rejects
+ATTN_P_SPLIT = True
 
 
-def _launch_local_attn(q, k, v, window, softcap) -> torch.Tensor:
+def _launch_local_attn(q, k, v, window, softcap,
+                       p_split: bool = ATTN_P_SPLIT) -> torch.Tensor:
     bh, s, d = q.shape
     if d not in _ATTN_HEAD_DIMS:
         raise ValueError(f"local_attn: the kernel takes head dims "
@@ -320,7 +296,7 @@ def _launch_local_attn(q, k, v, window, softcap) -> torch.Tensor:
         err = lib.local_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
             d, window, 1.0 / math.sqrt(d), float(softcap),
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16), int(p_split), stream)
     _launched("local_attn", lib, err)
     return out
 

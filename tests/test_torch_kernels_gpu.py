@@ -138,3 +138,66 @@ def test_resolve_on_card_equals_cpu(cuda, variant):
     assert card.blocking.pairs == host.blocking.pairs
     assert card.matches == host.matches
     assert card.blocking.cand_count == host.blocking.cand_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,words,m,window", [
+    (33, 3, 1001, 9), (32, 8, 1000, 7), (32, 8, 700, 256),
+    (64, 16, 700, 256), (32, 8, 1001, 9), (64, 16, 999, 9)],
+    ids=["f33-w3-unaligned", "window7", "window256", "window256-halved",
+         "m-not-rows", "wide-rows"])
+def test_fused_band_kernel_widths(cuda, f, words, m, window):
+    """K1's staged loads and stores at their corners: rows whose spans are
+    not 16-byte aligned (4-byte loads, scalar store head and tail), a
+    window that halves the row tile once the output tile is counted, M
+    not a multiple of the tile, and rows wider than the registers hold."""
+    rng = np.random.default_rng(f * window + m)
+    feat = torch.from_numpy(rng.normal(size=(2, m, f))
+                            .astype(np.float32)).to(cuda)
+    sig = torch.from_numpy(rng.integers(-2**31, 2**31, size=(2, m, words))
+                           .astype(np.int32)).to(cuda)
+    kw = dict(window=window, w_cos=0.5, w_jac=0.5)
+    got = _launched_once("fused_band",
+                         lambda: ops.fused_cheap_band(feat, sig, **kw))
+    want = ops.fused_cheap_band_ref(feat, sig, **kw)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,s,d,window,softcap", [
+    (2, 200, 256, 150, 30.0), (2, 256, 128, 1, 0.0),
+    (1, 300, 128, 512, 0.0), (2, 640, 128, 100, 0.0),
+    (3, 1000, 64, 333, 0.0)],
+    ids=["d256-s200-softcap", "window1", "window-over-s", "w100-mid-tile",
+         "d64-s1000"])
+def test_local_attn_tensor_core_corners(cuda, bh, s, d, window, softcap):
+    """The bf16 wgmma kernel at its corners, at the bf16 tolerance 3e-2:
+    S not a multiple of the 64-row warpgroup tile, a window of one key,
+    a window over S, and a kv walk that starts inside a tile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(bh * s + d + window)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
+        np.float32)).to(cuda).bfloat16() for _ in range(3))
+    # block_q = block_k = S: the reference's block contract holds for any S
+    got = _launched_once("local_attn", lambda: ops.local_attn(
+        q, k, v, window=window, softcap=softcap, block_q=s, block_k=s))
+    want = ref.local_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_allclose(to_np(got.float()), to_np(want.float()),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+def test_local_attn_model_shape_head(cuda):
+    """One head of the Mixtral-8x22B sliding-window layer (S 8192, D 128,
+    window 4096) in bf16, at chip_smoke.py's model-shape tolerance: rtol
+    1e-2 (one bf16 ulp), atol 2e-3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn((1, 8192, 128), generator=g, device=cuda)
+               .bfloat16() for _ in range(3))
+    got = _launched_once("local_attn", lambda: ops.local_attn(
+        q, k, v, window=4096))
+    want = ref.local_attention_ref(q, k, v, window=4096)
+    np.testing.assert_allclose(to_np(got.float()), to_np(want.float()),
+                               rtol=1e-2, atol=2e-3)
