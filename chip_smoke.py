@@ -15,9 +15,10 @@ Run from the root of a checkout.  Phases, one JSON line each:
               scalar) against its plain PyTorch version on the card, at
               full size and at edge cases; times with CUDA events
               (median), beside the bound; K1's effective TB/s; K4 at the
-              model shapes also with one bf16 part of P (P_lo dropped),
-              and timed in turns with the library calls flex_attention
-              and (no softcap) scaled_dot_product_attention
+              model shapes timed in turns with the library calls
+              flex_attention and (no softcap)
+              scaled_dot_product_attention, the faster one its
+              ``library_ms``
   4. bands    the kernel entry point ``kernels.ops`` on the system's own
               data: the 1.4M-record corpus in r=8 shards, each sorted;
               K2 -> cosine equals ``window.band_scores``, K1 equals
@@ -463,22 +464,15 @@ def _must_reject(name, got, wrong, tol, label) -> float:
     return float(err.max())
 
 
-def _within(got, want, tol) -> bool:
-    rtol, atol = tol
-    g, w = got.float(), want.float()
-    return not bool(((g - w).abs() > atol + rtol * w.abs()).any())
-
-
 def _kernel_local_attn():
     """K4 against its plain version at the edge cases of
     tests/test_kernels.py and the tensor-core kernel's corners (f32 through
     the scalar kernel, bf16 through the wgmma kernel) and at the two model
     shapes (bf16; the first ATTN_HEADS_CHECKED heads compared, heads being
     independent, at TOL_ATTN_MODEL, which must also reject the plain
-    version with its window one key short).  At the model shapes the bf16
-    kernel with one bf16 part of P (P_lo dropped) is held to the same
-    tolerance and its error recorded, and K4 is timed in turns with
-    flex_attention and (no softcap) SDPA."""
+    version with its window one key short).  At the model shapes K4 is
+    timed in turns with flex_attention and (no softcap) SDPA; the faster
+    of them is its ``library_ms``."""
     import torch
     from repro_torch.kernels import ops, ref
     errs = {}
@@ -518,19 +512,6 @@ def _kernel_local_attn():
             "local_attn", out[:h], ref.local_attention_ref(
                 q[:h], k[:h], v[:h], window=window - 1, softcap=cap),
             TOL_ATTN_MODEL, f"{label} against window - 1")
-        single = ops._launch_local_attn(q[:h], k[:h], v[:h], window, cap,
-                                        p_split=False)
-        split = ops._launch_local_attn(q[:h], k[:h], v[:h], window, cap,
-                                       p_split=True)
-        torch.cuda.synchronize()
-        p_variants = {
-            "single_bf16_max_abs_err": float((single.float() - want.float())
-                                             .abs().max()),
-            "single_bf16_passes_tol": _within(single, want, TOL_ATTN_MODEL),
-            "split_max_abs_err": float((split.float() - want.float())
-                                       .abs().max()),
-            "split_passes_tol": _within(split, want, TOL_ATTN_MODEL)}
-        del single, split
         plain_ms = cuda_ms(lambda: _attn_plain(q, k, v, window, cap),
                            reps=3, warm=1)
         flex = _flex(q, k, v, window, cap)
@@ -546,9 +527,12 @@ def _kernel_local_attn():
             if flex is not None else None
         sdpa_ms = statistics.mean(turns["sdpa"]) if sdpa is not None \
             else None
-        library = ("scaled_dot_product_attention (bool band mask)"
-                   if sdpa_ms is not None else "flex_attention (compiled)"
-                   if flex_ms is not None else None)
+        # the library yardstick is the faster of the calls timed
+        libs = [(t, n) for t, n in
+                ((flex_ms, "flex_attention (compiled)"),
+                 (sdpa_ms, "scaled_dot_product_attention (bool band mask)"))
+                if t is not None]
+        library_ms, library = min(libs) if libs else (None, None)
         shapes.append({
             "model": label, "shape": {"BH": bh, "S": s, "D": d,
                                       "window": window, "softcap": cap,
@@ -557,18 +541,17 @@ def _kernel_local_attn():
             "ms": ms, "plain_ms": plain_ms, "turns_ms": turns,
             **_bound(4 * bh * s * d * 2, _kept_pairs(bh, s, window) * 4 * d,
                      BF16_OPS_PER_S),
-            "library_ms": sdpa_ms if sdpa_ms is not None else flex_ms,
-            "library": library,
+            "library_ms": library_ms, "library": library,
             "sdpa_ms": sdpa_ms, "sdpa_vs_kernel_max_abs_err": sdpa_err,
             "flex_attention_ms": flex_ms,
             "flex_vs_kernel_max_abs_err": flex_err,
-            "kernel_beats_sdpa": None if sdpa_ms is None else ms < sdpa_ms,
-            "window_minus_1_max_abs_err": short_err, **p_variants})
+            "window_minus_1_max_abs_err": short_err})
         del q, k, v, out, want
         torch.cuda.empty_cache()
     rec = {"phase": "kernel", "name": "local_attn", "max_abs_err": errs,
            "design": {"bfloat16": "wgmma", "float32": "scalar"},
-           "p_split": ops.ATTN_P_SPLIT,
+           # P.V takes P as two bf16 parts (local_attn.cu)
+           "p_split": True,
            "tol": {**{k: v for k, v in TOL.items()
                       if k.startswith("local_attn")},
                    "local_attn/bf16 at model shapes": TOL_ATTN_MODEL},

@@ -36,11 +36,12 @@
 //   O += P.V      wgmma m64 n{D} k16, A = P from registers, B = V from
 //                 shared memory (MN-major, transposed)
 // P is split into two bf16 parts, P_hi = bf16(P) and P_lo = bf16(P - P_hi),
-// and both go into O (kSplit): V is exact in bf16, so P.V keeps ~16 bits of
-// P where one bf16 rounding keeps 8, at 1.5x the MMA work.  setmaxnreg gives
-// the consumers 240 registers and the producer 24; O at D = 256 is 128 f32
-// registers a thread.  Rows past S arrive as TMA zeros, keys past S are
-// masked, and output rows qp >= S are not stored.
+// and both go into O: V is exact in bf16, so P.V keeps ~16 bits of P where
+// one bf16 rounding keeps 8 (too few for the model-shape tolerance), at
+// 1.5x the MMA work.  setmaxnreg gives the consumers 240 registers and the
+// producer 24; O at D = 256 is 128 f32 registers a thread.  Rows past S
+// arrive as TMA zeros, keys past S are masked, and output rows qp >= S are
+// not stored.
 //
 // f32: scalar (local_attn_kernel, unchanged from the first port).  Grid
 // (query tiles of kBq rows, BH), kThreads threads per block.  A block
@@ -287,7 +288,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-template <int D, int BK, bool kSplit>
+template <int D, int BK>
 __global__ void __launch_bounds__(kTcThreads, 1)
 local_attn_tc_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
@@ -449,7 +450,7 @@ local_attn_tc_kernel(const __grid_constant__ CUtensorMap mq,
         // P as wgmma A fragments: the accumulator layout of S read as
         // k16 slices (rows r, r+8; columns c, c+1 and c+8, c+9)
         uint32_t p_hi[BK / 16][4];
-        uint32_t p_lo[kSplit ? BK / 16 : 1][4];
+        uint32_t p_lo[BK / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
@@ -458,23 +459,22 @@ local_attn_tc_kernel(const __grid_constant__ CUtensorMap mq,
             const __nv_bfloat16 ha = __float2bfloat16_rn(a);
             const __nv_bfloat16 hb = __float2bfloat16_rn(b);
             p_hi[kk][r] = pack_bf16(ha, hb);
-            if constexpr (kSplit)
-              p_lo[kk][r] = pack_bf16(
-                  __float2bfloat16_rn(__fsub_rn(a, __bfloat162float(ha))),
-                  __float2bfloat16_rn(__fsub_rn(b, __bfloat162float(hb))));
+            p_lo[kk][r] = pack_bf16(
+                __float2bfloat16_rn(__fsub_rn(a, __bfloat162float(ha))),
+                __float2bfloat16_rn(__fsub_rn(b, __bfloat162float(hb))));
           }
 
         // O += P V
         hopper::fence_regs(acc);
         fence_u32(p_hi);
-        if constexpr (kSplit) fence_u32(p_lo);
+        fence_u32(p_lo);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t b =
               hopper::desc_sw128(vt + kk * 16 * 64, BK * 128, 1024);
           hopper::wgmma_rs<D>(acc, p_hi[kk], b);
-          if constexpr (kSplit) hopper::wgmma_rs<D>(acc, p_lo[kk], b);
+          hopper::wgmma_rs<D>(acc, p_lo[kk], b);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait_all();
@@ -549,7 +549,7 @@ int make_map(CUtensorMap* map, const void* ptr, int bh, int s, int d,
   return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
 }
 
-template <int D, bool kSplit>
+template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
               int s, int window, float scale, float softcap,
               cudaStream_t stream) {
@@ -559,7 +559,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
   if (!err) err = make_map(&mk, k, bh, s, D, BK);
   if (!err) err = make_map(&mv, v, bh, s, D, BK);
   if (err) return err;
-  auto kern = local_attn_tc_kernel<D, BK, kSplit>;
+  auto kern = local_attn_tc_kernel<D, BK>;
   const int smem = TcSmem<D, BK>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -570,20 +570,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int bh,
   return (int)cudaGetLastError();
 }
 
-template <bool kSplit>
 int dispatch_tc(const void* q, const void* k, const void* v, void* o, int bh,
                 int s, int d, int window, float scale, float softcap,
                 cudaStream_t st) {
   switch (d) {
     case 64:
-      return launch_tc<64, kSplit>(q, k, v, o, bh, s, window, scale, softcap,
-                                   st);
+      return launch_tc<64>(q, k, v, o, bh, s, window, scale, softcap, st);
     case 128:
-      return launch_tc<128, kSplit>(q, k, v, o, bh, s, window, scale,
-                                    softcap, st);
+      return launch_tc<128>(q, k, v, o, bh, s, window, scale, softcap, st);
     case 256:
-      return launch_tc<256, kSplit>(q, k, v, o, bh, s, window, scale,
-                                    softcap, st);
+      return launch_tc<256>(q, k, v, o, bh, s, window, scale, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -612,21 +608,18 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v, o (bh, s, d) contiguous on the device, all f32 (is_bf16 = 0,
-// the scalar kernel) or all bf16 (is_bf16 = 1, the tensor-core kernel, with
-// P split into two bf16 parts when p_split = 1); d in {64, 128, 256};
-// window >= 1.  Returns 0 once launched, else a cudaError_t or one of the
-// kErr codes above (local_attn_error_string names it).
+// the scalar kernel) or all bf16 (is_bf16 = 1, the tensor-core kernel);
+// d in {64, 128, 256}; window >= 1.  Returns 0 once launched, else a
+// cudaError_t or one of the kErr codes above (local_attn_error_string names
+// it).
 int local_attn_launch(const void* q, const void* k, const void* v, void* o,
                       int bh, int s, int d, int window, float scale,
-                      float softcap, int is_bf16, int p_split, void* stream) {
+                      float softcap, int is_bf16, void* stream) {
   if (bh <= 0 || s <= 0) return 0;
   if (window < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return p_split ? dispatch_tc<true>(q, k, v, o, bh, s, d, window, scale,
-                                       softcap, st)
-                   : dispatch_tc<false>(q, k, v, o, bh, s, d, window, scale,
-                                        softcap, st);
+    return dispatch_tc(q, k, v, o, bh, s, d, window, scale, softcap, st);
   return (int)dispatch<float>(q, k, v, o, bh, s, d, window, scale, softcap,
                               st);
 }

@@ -175,7 +175,7 @@ def _lib(name: str) -> ctypes.CDLL:
         "fused_band": ([p] * 3 + [i] * 6 + [f, f, i, i, p], [i] * 6),
         "banded_sim": ([p, p] + [i] * 6 + [p], [i] * 3),
         "jaccard_band": ([p, p] + [i] * 5 + [p], [i] * 3),
-        "local_attn": ([p] * 4 + [i] * 4 + [f, f, i, i, p], None),
+        "local_attn": ([p] * 4 + [i] * 4 + [f, f, i, p], None),
     }[name]
     getattr(lib, f"{name}_launch").restype = ctypes.c_int
     getattr(lib, f"{name}_launch").argtypes = launch
@@ -275,14 +275,9 @@ def jaccard_band(sig: torch.Tensor, *, window: int,
 
 
 _ATTN_HEAD_DIMS = (64, 128, 256)
-# bf16 K4 splits P into two bf16 parts for P.V on the tensor cores: one
-# part alone rounds P to 8 bits, 0.0156 off the plain version at the
-# Gemma-2 layer (chip_smoke.py), which the model-shape tolerance rejects
-ATTN_P_SPLIT = True
 
 
-def _launch_local_attn(q, k, v, window, softcap,
-                       p_split: bool = ATTN_P_SPLIT) -> torch.Tensor:
+def _launch_local_attn(q, k, v, window, softcap) -> torch.Tensor:
     bh, s, d = q.shape
     if d not in _ATTN_HEAD_DIMS:
         raise ValueError(f"local_attn: the kernel takes head dims "
@@ -296,7 +291,7 @@ def _launch_local_attn(q, k, v, window, softcap,
         err = lib.local_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
             d, window, 1.0 / math.sqrt(d), float(softcap),
-            int(q.dtype == torch.bfloat16), int(p_split), stream)
+            int(q.dtype == torch.bfloat16), stream)
     _launched("local_attn", lib, err)
     return out
 
