@@ -9,12 +9,14 @@ Run from the root of a checkout.  Phases, one JSON line each:
   2. build    every CUDA kernel built from the checkout's sources (one nvcc
               per source, all started together), with ptxas's registers,
               shared memory and spills; fails without HGMMA in K4's SASS
-              (wgmma emitted) or with a spill in K1 or K4
+              (wgmma emitted) or with a spill in any kernel
   3. kernel   each of the four kernels (K1 fused band, K2 banded dot, K3
               Jaccard band, K4 local attention: bf16 on wgmma, f32
               scalar) against its plain PyTorch version on the card, at
               full size and at edge cases; times with CUDA events
-              (median), beside the bound; K1's effective TB/s; K4 at the
+              (median), beside the bound; K1-K3's effective TB/s and row
+              tile; K2 timed beside torch.bmm of each row against a
+              strided view of its successors; K4 at the
               model shapes timed in turns with the library calls
               flex_attention and (no softcap)
               scaled_dot_product_attention, the faster one its
@@ -158,7 +160,7 @@ def _sass_count(lib, opcode) -> int:
 
 def phase_build():
     """Every kernel built; raises unless K4's SASS holds HGMMA (wgmma was
-    emitted) and no instantiation of K1 or K4 spills."""
+    emitted) and no instantiation of any kernel spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
@@ -175,8 +177,8 @@ def phase_build():
                       for name, b in built.items()}})
     if not hgmma:
         raise AssertionError("local_attn: no HGMMA in the SASS")
-    if spills["local_attn"] or spills["fused_band"]:
-        raise AssertionError(f"K1/K4 spill registers: {spills}")
+    if any(spills.values()):
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 def _band_inputs(s, m, f, words, seed, *, zero_sig=False):
@@ -240,6 +242,7 @@ def _kernel_fused_band(feat, sig):
     n_bytes = feat.numel() * 4 + sig.numel() * 4 + s * m * window * 4
     rec = {"phase": "kernel", "name": "fused_band",
            "shape": {"S": s, "M": m, "F": f, "W": words, "window": window},
+           "rows": ops.band_rows("fused_band", window, (f, words), (1, 1)),
            "max_abs_err": errs, "tol": KERNEL_TOL,
            "ms": kernel_ms, "plain_ms": plain_ms,
            "effective_tb_per_s": n_bytes / kernel_ms / 1e9,
@@ -295,16 +298,68 @@ def _band_pairs(s, m, window) -> int:
     return s * (m * window - window * (window + 1) // 2)
 
 
+def _bmm_band(feat, window):
+    """K2's library yardstick: one ``torch.bmm`` of each row of the
+    flattened (S*M, F) rows against an ``as_strided`` view of its
+    ``window`` successors (batch stride F, no copy of the view), never on
+    a path of the port.  Outside the timed call the rows are laid out with
+    ``window`` zero rows after them, so the last rows have successors too,
+    and the band zeroes the slots whose partner lies in the next shard.
+    Returns (call, band of its result)."""
+    import torch
+    s, m, f = feat.shape
+    x = torch.cat([feat.reshape(s * m, f),
+                   feat.new_zeros((window, f))])
+    succ = x.as_strided((s * m, window, f), (f, f, 1), f)
+    own = x[:s * m].unsqueeze(-1)
+    call = lambda: torch.bmm(succ, own)
+
+    def band(out):
+        i = torch.arange(m, device=feat.device)[:, None]
+        d = torch.arange(window, device=feat.device)
+        return torch.where(i + 1 + d < m, out.reshape(s, m, window), 0.0)
+    return call, band
+
+
+def _library_bmm(feat, window, kernel_out):
+    """(ms, record) of K2's ``torch.bmm`` yardstick at the main shape:
+    whether PyTorch copied the strided view (the call's peak memory over
+    its output), and its band's max abs error against the kernel's."""
+    import torch
+    try:
+        call, band = _bmm_band(feat, window)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - \
+            out.numel() * out.element_size()
+        err = float((band(out) - kernel_out).abs().max())
+        del out
+        ms = cuda_ms(call, reps=20)
+    except RuntimeError as e:        # the call cannot run at this shape
+        torch.cuda.empty_cache()
+        return None, {"call": "torch.bmm", "error": str(e)[:200]}
+    view_bytes = feat.numel() * feat.element_size() * window
+    return ms, {"call": "torch.bmm over an as_strided view of the "
+                        "successors", "ms": ms,
+                "extra_bytes_allocated": extra,
+                "copied_view": extra >= view_bytes // 2,
+                "max_abs_err_vs_kernel": err}
+
+
 def _kernel_banded_sim(feat):
     """K2 against its plain version at the main shape (f32) and at the edge
-    cases of tests/test_kernels.py (bf16 among them); times at the main
-    shape."""
+    cases of tests/test_kernels.py (bf16 among them) and of its staged
+    loads (a span not 16-byte aligned, rows wider than the registers);
+    times at the main shape, beside its torch.bmm yardstick."""
     import torch
     from repro_torch.kernels import ops, ref
     s, m, f = feat.shape
     window = W - 1
-    errs = {"main": _hold("banded_sim", ops.banded_dot_band(feat,
-                                                            window=window),
+    k2 = ops.banded_dot_band(feat, window=window)
+    errs = {"main": _hold("banded_sim", k2,
                           ref.banded_sim_ref(feat, window=window),
                           TOL["banded_sim/f32"], "main")}
     edge = [  # (label, S, M, F, window, dtype)
@@ -314,6 +369,10 @@ def _kernel_banded_sim(feat):
         ("f256_window200", 1, 1024, 256, 200, torch.float32),
         ("bf16", 8, 1000, 32, 9, torch.bfloat16),
         ("bf16_f128_window200", 1, 1024, 128, 200, torch.bfloat16),
+        # span not 16-byte aligned (element loads, scalar store head/tail)
+        ("f33_unaligned", 2, 1001, 33, 9, torch.float32),
+        # rows wider than the registers hold (read from shared memory)
+        ("f64_wide_rows", 2, 999, 64, 9, torch.float32),
     ]
     for label, es, em, ef, ewin, dt in edge:
         x = _randn((es, em, ef), 4, dt)
@@ -324,37 +383,48 @@ def _kernel_banded_sim(feat):
     ms = cuda_ms(lambda: ops.banded_dot_band(feat, window=window), reps=50)
     plain_ms = cuda_ms(lambda: ref.banded_sim_ref(feat, window=window),
                        reps=5, warm=1)
+    library_ms, library = _library_bmm(feat, window, k2)
+    del k2
+    n_bytes = feat.numel() * 4 + s * m * window * 4
     rec = {"phase": "kernel", "name": "banded_sim",
            "shape": {"S": s, "M": m, "F": f, "window": window,
                      "dtype": "float32"},
+           "rows": ops.band_rows("banded_sim", window, (f,)),
            "max_abs_err": errs, "tol": {k: v for k, v in TOL.items()
                                         if k.startswith("banded_sim")},
            "ms": ms, "plain_ms": plain_ms,
-           **_bound(feat.numel() * 4 + s * m * window * 4,
-                    _band_pairs(s, m, window) * 2 * f, F32_OPS_PER_S),
-           "library_ms": None}
+           "effective_tb_per_s": n_bytes / ms / 1e9,
+           **_bound(n_bytes, _band_pairs(s, m, window) * 2 * f,
+                    F32_OPS_PER_S),
+           "library_ms": library_ms, "library": library}
     emit(rec)
     return rec
 
 
 def _kernel_jaccard_band(sig):
-    """K3 against its plain version at the main shape and at edge cases
-    (all-zero signatures give 0.0); times at the main shape."""
+    """K3 against its plain version at the main shape (bit for bit: integer
+    counts and one IEEE division) and at edge cases (all-zero signatures
+    give 0.0; a span not 16-byte aligned); times at the main shape."""
     import torch
     from repro_torch.kernels import ops, ref
     s, m, words = sig.shape
     window = W - 1
     tol = TOL["jaccard_band"]
-    errs = {"main": _hold("jaccard_band", ops.jaccard_band(sig,
-                                                           window=window),
-                          ref.jaccard_band_ref(sig, window=window), tol,
-                          "main")}
+    k3 = ops.jaccard_band(sig, window=window)
+    want = ref.jaccard_band_ref(sig, window=window)
+    errs = {"main": _hold("jaccard_band", k3, want, tol, "main")}
+    if not torch.equal(k3, want):
+        raise AssertionError("jaccard_band: main shape not bit-equal to its "
+                             "plain version")
+    del k3, want
     edge = [  # (label, S, M, W, window, all-zero signatures)
         ("m130_words2", 1, 130, 2, 8, False),
         ("words16", 1, 192, 16, 32, False),
         ("m_below_window", 1, 8, 4, 16, False),
         ("window_eq_band_block", 1, 700, 8, 256, False),
         ("all_zero_signatures", 2, 513, 8, 9, True),
+        # span not 16-byte aligned (4-byte loads, scalar store head/tail)
+        ("words3_unaligned", 2, 1001, 3, 9, False),
     ]
     for label, es, em, ew, ewin, zero in edge:
         _, x = _band_inputs(es, max(em, 2), 2, ew, 5, zero_sig=zero)
@@ -367,14 +437,18 @@ def _kernel_jaccard_band(sig):
     ms = cuda_ms(lambda: ops.jaccard_band(sig, window=window), reps=50)
     plain_ms = cuda_ms(lambda: ref.jaccard_band_ref(sig, window=window),
                        reps=5, warm=1)
-    # per word: and, or, two popcounts, two adds (int32, counted at the f32
+    n_bytes = sig.numel() * 4 + s * m * window * 4
+    # per word-pair: and, popcount, add (the union comes by inclusion-
+    # exclusion from each row's count; int32, counted at the f32
     # non-tensor rate)
     rec = {"phase": "kernel", "name": "jaccard_band",
            "shape": {"S": s, "M": m, "W": words, "window": window},
+           "rows": ops.band_rows("jaccard_band", window, (words,)),
            "max_abs_err": errs, "tol": tol,
            "ms": ms, "plain_ms": plain_ms,
-           **_bound(sig.numel() * 4 + s * m * window * 4,
-                    _band_pairs(s, m, window) * 6 * words, F32_OPS_PER_S),
+           "effective_tb_per_s": n_bytes / ms / 1e9,
+           **_bound(n_bytes, _band_pairs(s, m, window) * 3 * words,
+                    F32_OPS_PER_S),
            "library_ms": None}
     emit(rec)
     return rec

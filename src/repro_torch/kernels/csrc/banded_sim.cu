@@ -8,71 +8,81 @@
 //   out[s, i, d] = <feat_i, feat_j>        (raw dot, no clip; 0 where j >= m)
 //
 // feat is f32, or bf16 widened to f32 as it is staged; the dot accumulates
-// in IEEE f32 FMAs.
+// in IEEE f32 FMAs over k = 0..F-1 in order, as fused_band.cu's cosine half
+// does, so the two kernels' dots are equal bit for bit.
 //
 // Bound: device-memory bytes.  Each input row is read once and each band
 // row written once (S*M*F*elem + S*M*window*4 bytes), against 2F operations
 // per pair, far under the f32 ridge.
 //
-// Design (the scheme of fused_band.cu): grid (row tiles, S), one thread per
-// row.  A block stages its tile of `rows` rows plus the `window` successor
-// rows in shared memory with coalesced loads, so every row is read from
-// device memory about once.  Shared rows are padded to an odd word stride so
-// the 32 threads of a warp, each reading its own row, hit 32 different
-// banks.  The TPU kernel's (Bi, 2*Bi) MXU tile and the host gather of the
-// band from it are not carried over: only the band is computed.
+// Design (fused_band.cu's scheme, with its helpers from csrc/band.cuh):
+// grid (row tiles, S), one thread per row, `rows` rows a block.
+//   Loads.  The block's contiguous input span (the tile and its `window`
+//     successor rows) goes into shared rows of stride 4 (mod 8) words by
+//     16-byte cp.async where F is a multiple of 4 and the span 16-byte
+//     aligned, else by element loads walking (row, column) with no
+//     division; bf16 takes the element walk, widened to f32 as it lands.
+//   Compute.  Each thread keeps its own row in registers (F <= 32, the
+//     main path's width; wider rows are read from shared memory) and reads
+//     each partner row as float4, which on that stride puts the 16-byte
+//     reads of 8 threads on 8 consecutive rows on all 32 banks once.
+//   Stores.  The scores go into a shared (rows, window) tile, written back
+//     as the contiguous span out[s, row0 : row0 + rows, :] in 16-byte
+//     stores with a scalar head and tail.
+// The TPU kernel's (Bi, 2*Bi) MXU tile and the host gather of the band from
+// it are not carried over: only the band is computed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "band.cuh"
+
 namespace {
 
-__host__ __device__ inline int odd_stride(int n) { return (n % 2) ? n : n + 1; }
-
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
+template <typename T, bool kReg>
 __global__ void banded_sim_kernel(const T* __restrict__ feat,
                                   float* __restrict__ out, int m, int f,
                                   int window, int rows) {
-  extern __shared__ float sfeat[];
-  const int fs = odd_stride(f);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int fs = band::vec_stride(f);
   const int tile_rows = rows + window;
+  float* sfeat = reinterpret_cast<float*>(smem_raw);
+  float* sout = sfeat + (size_t)tile_rows * fs;
 
   const int s = blockIdx.y;
   const long row0 = (long)blockIdx.x * rows;
   const long left = (long)m - row0;
   const int have = left < tile_rows ? (int)left : tile_rows;
+  const int out_rows = left < rows ? (int)left : rows;
 
-  const T* src = feat + ((long)s * m + row0) * f;
-  const int n = have * f;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
-    sfeat[(idx / f) * fs + idx % f] = to_f32(src[idx]);
+  band::stage_rows(sfeat, fs, feat + ((long)s * m + row0) * f, have, f);
+  float* dst = out + ((long)s * m + row0) * window;
+  const int head = band::store_head(dst);
+  float* tile = sout + ((4 - head) & 3);
   __syncthreads();
 
   const int r = threadIdx.x;
-  const long i = row0 + r;
-  if (i >= m) return;
-  float* o = out + ((long)s * m + i) * window;
-  const float* a = sfeat + r * fs;
-
-  for (int d = 0; d < window; ++d) {
-    if (i + 1 + d >= m) {
-      o[d] = 0.0f;
-      continue;
-    }
-    const float* b = sfeat + (r + 1 + d) * fs;
-    float dot = 0.0f;
-    for (int k = 0; k < f; ++k) dot = __fmaf_rn(a[k], b[k], dot);
-    o[d] = dot;
+  if (r < out_rows) {
+    const long i = row0 + r;
+    float a[kReg ? band::kRegF : 1];
+    if (kReg) band::row_to_regs(a, sfeat + r * fs, f);
+    float* o = tile + r * window;
+    // three slots at a time: three independent FMA chains in flight
+#pragma unroll 3
+    for (int d = 0; d < window; ++d)
+      o[d] = i + 1 + d < m
+          ? band::dot_row<kReg>(a, sfeat + r * fs, sfeat + (r + 1 + d) * fs,
+                                f)
+          : 0.0f;
   }
+  __syncthreads();
+  band::store_tile(dst, tile, out_rows * window, head);
 }
 
-template <typename T>
+template <typename T, bool kReg>
 cudaError_t launch(const void* feat, void* out, int s, int m, int f,
                    int window, int rows, size_t smem, cudaStream_t stream) {
-  auto kern = banded_sim_kernel<T>;
+  auto kern = banded_sim_kernel<T, kReg>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -83,13 +93,25 @@ cudaError_t launch(const void* feat, void* out, int s, int m, int f,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_widths(const void* feat, void* out, int s, int m, int f,
+                          int window, int rows, size_t smem,
+                          cudaStream_t st) {
+  return f <= band::kRegF
+      ? launch<T, true>(feat, out, s, m, f, window, rows, smem, st)
+      : launch<T, false>(feat, out, s, m, f, window, rows, smem, st);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of `rows` rows needs (rows staged as f32).
+// Dynamic shared memory one block of `rows` rows needs: the input tile
+// (rows + window rows, staged as f32) and the (rows, window) output tile
+// with its alignment slack.
 size_t banded_sim_smem_bytes(int rows, int window, int f) {
-  return ((size_t)rows + window) * odd_stride(f) * 4;
+  return (((size_t)rows + window) * band::vec_stride(f) +
+          (size_t)rows * window + 4) * 4;
 }
 
 // feat (s, m, f) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), out (s, m, window)
@@ -102,8 +124,9 @@ int banded_sim_launch(const void* feat, void* out, int s, int m, int f,
   const size_t smem = banded_sim_smem_bytes(rows, window, f);
   auto st = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16
-      ? launch<__nv_bfloat16>(feat, out, s, m, f, window, rows, smem, st)
-      : launch<float>(feat, out, s, m, f, window, rows, smem, st));
+      ? launch_widths<__nv_bfloat16>(feat, out, s, m, f, window, rows, smem,
+                                     st)
+      : launch_widths<float>(feat, out, s, m, f, window, rows, smem, st));
 }
 
 const char* banded_sim_error_string(int err) {

@@ -37,94 +37,18 @@
 //     head and tail where the span is not 16-byte aligned.  (One thread
 //     storing its own row's scores would put the 32 lanes of a store
 //     window*4 bytes apart.)
-// The TPU kernel's (Bi, 2*Bi) MXU tile is not carried over: only the band
-// is computed.
+// The staging, register, dot and store helpers are csrc/band.cuh's, shared
+// with banded_sim.cu and jaccard_band.cu.  The TPU kernel's (Bi, 2*Bi) MXU
+// tile is not carried over: only the band is computed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "band.cuh"
+
 namespace {
 
-constexpr int kRegF = 32;   // feature words a thread keeps in registers
-constexpr int kRegW = 8;    // signature words a thread keeps in registers
-
-// Row stride in words: 16-byte aligned, and 4 (mod 8) against bank
-// conflicts of 16-byte reads.
-__host__ __device__ inline int vec_stride(int n) {
-  const int s = (n + 3) / 4 * 4;
-  return (s / 4) % 2 ? s : s + 4;
-}
-
-__device__ inline void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-// Rows [0, nrows) of width `width` words from the contiguous span `src`
-// into `dst` at row stride `stride`.
-template <typename T>
-__device__ inline void stage_rows(T* dst, int stride, const T* src,
-                                  int nrows, int width) {
-  if (width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    const int w4 = width / 4;
-    const int n4 = nrows * w4;
-    int r = threadIdx.x / w4, c = threadIdx.x % w4 * 4;
-    const int dr = blockDim.x / w4, dc = blockDim.x % w4 * 4;
-    for (int v = threadIdx.x; v < n4; v += blockDim.x) {
-      cp_async16(dst + r * stride + c, src + 4 * v);
-      c += dc;
-      r += dr;
-      if (c >= width) {
-        c -= width;
-        ++r;
-      }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  } else {
-    const int n = nrows * width;
-    int r = threadIdx.x / width, c = threadIdx.x % width;
-    const int dr = blockDim.x / width, dc = blockDim.x % width;
-    for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      dst[r * stride + c] = src[idx];
-      c += dc;
-      r += dr;
-      if (c >= width) {
-        c -= width;
-        ++r;
-      }
-    }
-  }
-}
-
-// <a, b> over k = 0..f-1 in order, b a 16-byte aligned shared row.
-template <bool kReg>
-__device__ inline float dot_row(const float* a_reg, const float* a_smem,
-                                const float* b, int f) {
-  float dot = 0.0f;
-  if (kReg) {
-#pragma unroll
-    for (int q = 0; q < kRegF / 4; ++q) {
-      if (4 * q >= f) break;
-      const float4 v = *reinterpret_cast<const float4*>(b + 4 * q);
-      const float bv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (4 * q + e < f) dot = __fmaf_rn(a_reg[4 * q + e], bv[e], dot);
-    }
-  } else {
-    for (int q = 0; 4 * q < f; ++q) {
-      const float4 u = *reinterpret_cast<const float4*>(a_smem + 4 * q);
-      const float4 v = *reinterpret_cast<const float4*>(b + 4 * q);
-      const float av[4] = {u.x, u.y, u.z, u.w};
-      const float bv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (4 * q + e < f) dot = __fmaf_rn(av[e], bv[e], dot);
-    }
-  }
-  return dot;
-}
+using band::kRegF;
+using band::kRegW;
 
 template <bool kReg>
 __device__ inline void popc_row(const int32_t* a_reg, const int32_t* a_smem,
@@ -161,20 +85,6 @@ __device__ inline void popc_row(const int32_t* a_reg, const int32_t* a_smem,
   }
 }
 
-// The contiguous span dst[0, n) from `tile`, where tile + head is 16-byte
-// aligned (head = the floats before dst's first 16-byte boundary).
-__device__ inline void store_tile(float* dst, const float* tile, int n,
-                                  int head) {
-  head = min(head, n);
-  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[e] = tile[e];
-  const int n4 = (n - head) / 4;
-  auto* d4 = reinterpret_cast<float4*>(dst + head);
-  auto* t4 = reinterpret_cast<const float4*>(tile + head);
-  for (int v = threadIdx.x; v < n4; v += blockDim.x) d4[v] = t4[v];
-  for (int e = head + 4 * n4 + threadIdx.x; e < n; e += blockDim.x)
-    dst[e] = tile[e];
-}
-
 template <bool kCos, bool kJac, bool kReg>
 __global__ void fused_band_kernel(const float* __restrict__ feat,
                                   const int32_t* __restrict__ sig,
@@ -182,8 +92,8 @@ __global__ void fused_band_kernel(const float* __restrict__ feat,
                                   int m, int f, int words, int window,
                                   int rows, float w_cos, float w_jac) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int fs = kCos ? vec_stride(f) : 0;
-  const int ws = kJac ? vec_stride(words) : 0;
+  const int fs = kCos ? band::vec_stride(f) : 0;
+  const int ws = kJac ? band::vec_stride(words) : 0;
   const int tile_rows = rows + window;
   float* sfeat = reinterpret_cast<float*>(smem_raw);
   int32_t* ssig = reinterpret_cast<int32_t*>(sfeat + (size_t)tile_rows * fs);
@@ -196,15 +106,15 @@ __global__ void fused_band_kernel(const float* __restrict__ feat,
   const int out_rows = left < rows ? (int)left : rows;
 
   if (kCos)
-    stage_rows(sfeat, fs, feat + ((long)s * m + row0) * f, have, f);
+    band::stage_rows(sfeat, fs, feat + ((long)s * m + row0) * f, have, f);
   if (kJac)
-    stage_rows(ssig, ws, sig + ((long)s * m + row0) * words, have, words);
+    band::stage_rows(ssig, ws, sig + ((long)s * m + row0) * words, have,
+                     words);
 
   // element e of the output span sits at tile[e], tile + head 16-byte
   // aligned
   float* dst = out + ((long)s * m + row0) * window;
-  const int head =
-      (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4;
+  const int head = band::store_head(dst);
   float* tile = sout + ((4 - head) & 3);
   __syncthreads();
 
@@ -213,29 +123,8 @@ __global__ void fused_band_kernel(const float* __restrict__ feat,
     const long i = row0 + r;
     float a_feat[kReg && kCos ? kRegF : 1];
     int32_t a_sig[kReg && kJac ? kRegW : 1];
-    if (kReg && kCos) {
-#pragma unroll
-      for (int q = 0; q < kRegF / 4; ++q) {
-        if (4 * q >= f) break;
-        const float4 v = *reinterpret_cast<const float4*>(sfeat + r * fs +
-                                                          4 * q);
-        a_feat[4 * q] = v.x;
-        a_feat[4 * q + 1] = v.y;
-        a_feat[4 * q + 2] = v.z;
-        a_feat[4 * q + 3] = v.w;
-      }
-    }
-    if (kReg && kJac) {
-#pragma unroll
-      for (int q = 0; q < kRegW / 4; ++q) {
-        if (4 * q >= words) break;
-        const int4 v = *reinterpret_cast<const int4*>(ssig + r * ws + 4 * q);
-        a_sig[4 * q] = v.x;
-        a_sig[4 * q + 1] = v.y;
-        a_sig[4 * q + 2] = v.z;
-        a_sig[4 * q + 3] = v.w;
-      }
-    }
+    if (kReg && kCos) band::row_to_regs(a_feat, sfeat + r * fs, f);
+    if (kReg && kJac) band::row_to_regs(a_sig, ssig + r * ws, words);
     float* o = tile + r * window;
     // three slots at a time: three independent FMA chains in flight
 #pragma unroll 3
@@ -248,8 +137,8 @@ __global__ void fused_band_kernel(const float* __restrict__ feat,
       const int rj = r + 1 + d;
       float acc = 0.0f;
       if (kCos) {
-        const float dot = dot_row<kReg>(a_feat, sfeat + r * fs,
-                                        sfeat + rj * fs, f);
+        const float dot = band::dot_row<kReg>(a_feat, sfeat + r * fs,
+                                              sfeat + rj * fs, f);
         const float c = fminf(fmaxf(__fmul_rn(0.5f, __fadd_rn(dot, 1.0f)), 0.0f),
                               1.0f);
         acc = __fmul_rn(w_cos, c);
@@ -266,7 +155,7 @@ __global__ void fused_band_kernel(const float* __restrict__ feat,
     }
   }
   __syncthreads();
-  store_tile(dst, tile, out_rows * window, head);
+  band::store_tile(dst, tile, out_rows * window, head);
 }
 
 
@@ -307,8 +196,8 @@ extern "C" {
 size_t fused_band_smem_bytes(int rows, int window, int f, int words,
                              int use_cos, int use_jac) {
   const size_t tile = (size_t)rows + window;
-  return (tile * ((use_cos ? vec_stride(f) : 0) +
-                  (use_jac ? vec_stride(words) : 0)) +
+  return (tile * ((use_cos ? band::vec_stride(f) : 0) +
+                  (use_jac ? band::vec_stride(words) : 0)) +
           (size_t)rows * window + 4) * 4;
 }
 

@@ -44,10 +44,10 @@ LAUNCHES: Dict[str, int] = {"fused_band": 0, "banded_sim": 0,
 
 # a block's dynamic shared memory on Hopper (227 KB of the SM's 256 KB)
 _MAX_SMEM = 232_448
-# first row tile of each band kernel, halved until it fits _MAX_SMEM; K1
-# runs fastest at 128 rows (about seven blocks an SM, so one block's
-# loads overlap another's compute; PERF.md)
-_ROWS = {"fused_band": 128, "banded_sim": 256, "jaccard_band": 256}
+# first row tile of each band kernel, halved until it fits _MAX_SMEM; the
+# fastest of 512/256/128/64 at the main shape on the H100 (PERF.md): many
+# small blocks an SM, so one block's loads overlap another's compute
+_ROWS = {"fused_band": 128, "banded_sim": 64, "jaccard_band": 128}
 
 
 def reset_launch_counts() -> None:
@@ -166,10 +166,14 @@ def band_from_tiles(tiles: torch.Tensor, *, window: int,
 
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
-    """The kernel library ``name`` with the argtypes of its C interface
-    (pointers and the stream as c_void_p, ints as c_int)."""
+    """The kernel library ``name``, built from the checkout's sources."""
     from repro_torch.kernels import build
-    lib = build.load(name)
+    return bind(name, build.load(name))
+
+
+def bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of kernel ``name``, with the argtypes of its C
+    interface (pointers and the stream as c_void_p, ints as c_int)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch, smem = {
         "fused_band": ([p] * 3 + [i] * 6 + [f, f, i, i, p], [i] * 6),
@@ -194,26 +198,38 @@ def _launched(name: str, lib: ctypes.CDLL, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def _launch_band(name: str, inputs: tuple, window: int, *,
-                 extra: tuple = (), smem_extra: tuple = ()) -> torch.Tensor:
-    """One launch of the band kernel ``name`` on (S, M, C) inputs (one for
-    banded_sim and jaccard_band, feat and sig for fused_band), the row
-    tile halved until it fits shared memory.  The C interface is
-    ``launch(*inputs, out, S, M, *widths, window, rows, *extra, stream)``
-    and ``smem_bytes(rows, window, *widths, *smem_extra)``."""
-    lib = _lib(name)
-    s, m = inputs[0].shape[:2]
-    widths = [x.shape[2] for x in inputs]
-    if m >= 2**31 or s >= 2**16:
-        raise ValueError(f"{name}: S={s}, M={m} exceed the kernel's grid")
-    smem = getattr(lib, f"{name}_smem_bytes")
+def band_rows(name: str, window: int, widths, smem_extra: tuple = (),
+              lib: ctypes.CDLL = None) -> int:
+    """The row tile of one launch of the band kernel ``name``:
+    ``_ROWS[name]`` halved until the block fits shared memory (``lib`` a
+    bound build of the kernel, the checkout's by default)."""
+    smem = getattr(_lib(name) if lib is None else lib,
+                   f"{name}_smem_bytes")
     rows = _ROWS[name]
     while rows > 1 and smem(rows, window, *widths,
                             *smem_extra) > _MAX_SMEM:
         rows //= 2
     if smem(rows, window, *widths, *smem_extra) > _MAX_SMEM:
-        raise ValueError(f"{name}: rows of widths {widths} with "
+        raise ValueError(f"{name}: rows of widths {list(widths)} with "
                          f"window={window} do not fit shared memory")
+    return rows
+
+
+def _launch_band(name: str, inputs: tuple, window: int, *,
+                 extra: tuple = (), smem_extra: tuple = (),
+                 lib: ctypes.CDLL = None) -> torch.Tensor:
+    """One launch of the band kernel ``name`` on (S, M, C) inputs (one for
+    banded_sim and jaccard_band, feat and sig for fused_band), at the row
+    tile ``band_rows`` gives.  The C interface is ``launch(*inputs, out,
+    S, M, *widths, window, rows, *extra, stream)`` and ``smem_bytes(rows,
+    window, *widths, *smem_extra)``.  ``lib`` is a bound build of the
+    kernel (``bind``), the checkout's by default."""
+    lib = _lib(name) if lib is None else lib
+    s, m = inputs[0].shape[:2]
+    widths = [x.shape[2] for x in inputs]
+    if m >= 2**31 or s >= 2**16:
+        raise ValueError(f"{name}: S={s}, M={m} exceed the kernel's grid")
+    rows = band_rows(name, window, widths, smem_extra, lib)
     out = torch.empty((s, m, window), dtype=torch.float32,
                       device=inputs[0].device)
     stream = torch.cuda.current_stream(out.device).cuda_stream

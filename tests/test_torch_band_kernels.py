@@ -215,3 +215,62 @@ def test_cpu_path_counts_no_launch():
     tops.jaccard_band(torch.zeros((20, 2), dtype=torch.int32), window=3)
     assert tops.launch_counts()["banded_sim"] == 0
     assert tops.launch_counts()["jaccard_band"] == 0
+
+
+@pytest.mark.parametrize("words", [1, 3, 8])
+def test_popcount_union_by_inclusion_exclusion(words):
+    """The arithmetic K3's kernel relies on: popc(a | b) = popc(a) +
+    popc(b) - popc(a & b) word by word (sign-bit words among them), so
+    that a row's count taken once gives every union; and K3's plain
+    version equals inter / max(P(a) + P(b) - inter, 1) bit for bit."""
+    from repro_torch.core.match import popcount32
+    rng = np.random.default_rng(words)
+    edge = np.array([0, -1, -2**31, 2**31 - 1, 1, -2], np.int32)
+    a = np.concatenate([rng.integers(-2**31, 2**31, 4000), edge,
+                        edge[::-1]]).astype(np.int32)
+    b = np.concatenate([rng.integers(-2**31, 2**31, 4000), edge[::-1],
+                        edge]).astype(np.int32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert torch.equal(popcount32(ta | tb),
+                       popcount32(ta) + popcount32(tb) - popcount32(ta & tb))
+    want = np.array([bin(int(x) & 0xFFFFFFFF).count("1") for x in a])
+    np.testing.assert_array_equal(to_np(popcount32(ta)), want)
+
+    m, window = 500, 9
+    sig = torch.from_numpy(rng.integers(-2**31, 2**31, size=(2, m, words))
+                           .astype(np.int32))
+    sig[:, ::7] = 0                                    # empty rows
+    pop = popcount32(sig).sum(dim=-1)
+    cols = []
+    for d in range(1, window + 1):
+        inter = popcount32(sig & torch.roll(sig, -d, dims=-2)).sum(dim=-1)
+        uni = pop + torch.roll(pop, -d, dims=-1) - inter
+        jac = inter.float() / torch.clamp_min(uni.float(), 1.0)
+        cols.append(torch.where(torch.arange(m) + d < m, jac, 0.0))
+    assert torch.equal(torch.stack(cols, dim=-1),
+                       tref.jaccard_band_ref(sig, window=window))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("s,m,f,window", [(3, 200, 32, 9), (1, 50, 7, 12)])
+def test_bmm_yardstick_computes_the_k2_band(s, m, f, window):
+    """chip_smoke.py's library yardstick for K2 (torch.bmm of each row
+    against a strided view of its successors, the band masked outside the
+    call) computes K2's function: equal to the plain version at K2's f32
+    tolerance, also where the view runs across shards."""
+    feat = torch.from_numpy(np.random.default_rng(m).normal(
+        size=(s, m, f)).astype(np.float32))
+    call, band = _chip_smoke()._bmm_band(feat, window)
+    got = band(call())
+    np.testing.assert_allclose(to_np(got),
+                               to_np(tref.banded_sim_ref(feat, window=window)),
+                               rtol=1e-5, atol=1e-4)

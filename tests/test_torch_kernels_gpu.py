@@ -201,3 +201,72 @@ def test_local_attn_model_shape_head(cuda):
     want = ref.local_attention_ref(q, k, v, window=4096)
     np.testing.assert_allclose(to_np(got.float()), to_np(want.float()),
                                rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,f,window,dtype", [
+    (2, 1001, 33, 9, "f32"), (2, 999, 64, 9, "f32"),
+    (1, 700, 64, 256, "f32"), (2, 1001, 33, 9, "bf16"),
+    (3, 1000, 31, 7, "f32")],
+    ids=["f33-unaligned", "f64-wide-rows", "f64-w256-halved",
+         "bf16-f33", "f31-window7"])
+def test_banded_sim_kernel_staging_paths(cuda, s, m, f, window, dtype):
+    """K2's staged loads and stores at their corners: spans not 16-byte
+    aligned (element loads, scalar store head and tail), rows wider than
+    the registers hold, and a window that halves the row tile; at K2's
+    tolerances."""
+    tol = 1e-5 if dtype == "f32" else 2e-2
+    feat = torch.from_numpy(np.random.default_rng(f + m).normal(
+        size=(s, m, f)).astype(np.float32)).to(cuda)
+    if dtype == "bf16":
+        feat = feat.bfloat16()
+    got = _launched_once("banded_sim", lambda: ops.banded_dot_band(
+        feat, window=window))
+    want = ref.banded_sim_ref(feat, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol,
+                               atol=tol * 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,words,window", [
+    (2, 1001, 3, 9), (2, 999, 16, 9), (1, 700, 3, 256), (3, 1000, 5, 7)],
+    ids=["words3-unaligned", "words16-wide-rows", "words3-w256",
+         "words5-window7"])
+def test_jaccard_band_kernel_staging_paths(cuda, s, m, words, window):
+    """K3's staged loads and stores at their corners, bit for bit: integer
+    counts and one IEEE division."""
+    sig = torch.from_numpy(np.random.default_rng(words + m).integers(
+        -2**31, 2**31, size=(s, m, words)).astype(np.int32)).to(cuda)
+    sig[:, ::5] = 0
+    got = _launched_once("jaccard_band", lambda: ops.jaccard_band(
+        sig, window=window))
+    assert torch.equal(got, ref.jaccard_band_ref(sig, window=window))
+
+
+@pytest.mark.gpu
+def test_jaccard_band_kernel_bit_equal_to_plain_version(cuda):
+    """K3 at the main path's widths (8 shards, 8 words, window 9) equals
+    its plain version bit for bit: the union by inclusion-exclusion is an
+    exact integer."""
+    sig = torch.from_numpy(np.random.default_rng(14).integers(
+        -2**31, 2**31, size=(8, 20_000, 8)).astype(np.int32)).to(cuda)
+    got = _launched_once("jaccard_band", lambda: ops.jaccard_band(
+        sig, window=9))
+    assert torch.equal(got, ref.jaccard_band_ref(sig, window=9))
+
+
+@pytest.mark.gpu
+def test_banded_sim_dot_equals_fused_band_cosine_half(cuda):
+    """K2's dot and K1's cosine half run one FMA chain in one order, so
+    K1 with only its cosine half equals clip(0.5 * (K2 + 1)) bit for
+    bit."""
+    rng = np.random.default_rng(15)
+    feat = torch.from_numpy(rng.normal(size=(2, 5000, 32))
+                            .astype(np.float32)).to(cuda)
+    sig = torch.zeros((2, 5000, 1), dtype=torch.int32, device=cuda)
+    k1 = ops.fused_cheap_band(feat, sig, window=9, w_cos=1.0, w_jac=0.0)
+    k2 = ops.banded_dot_band(feat, window=9)
+    m = torch.arange(5000, device=cuda)[:, None] + 1 + \
+        torch.arange(9, device=cuda) < 5000
+    cos = torch.where(m, torch.clamp(0.5 * (k2 + 1.0), 0.0, 1.0), 0.0)
+    assert torch.equal(k1, cos)
