@@ -13,7 +13,7 @@ each is built with the checkout's nvcc flags, its own directory first on
 the include path and ``csrc/`` after it.  For every kernel it holds, the
 alternative's result is compared with the checkout's and both are timed
 in turns: checkout, alternatives, alternatives reversed, checkout, each
-the median of CUDA events over ``--reps`` calls.  ``@NAME=ROWS,...``
+the median of CUDA events over REPS calls.  ``@NAME=ROWS,...``
 after a directory gives that alternative's first row tiles (as its own
 ``ops._ROWS`` had them; the checkout's by default); one directory may be
 given with several.  ``--rows`` times the
@@ -41,18 +41,20 @@ from repro_torch.kernels import build, ops
 
 BAND_KERNELS = ("fused_band", "banded_sim", "jaccard_band")
 SHAPE = (8, 1_400_009, 32, 8, 9)     # S, M, F, W, window
+REPS = 50
 # (widths, smem_extra) of each kernel's smem_bytes at SHAPE
 WIDTHS = {"fused_band": ((SHAPE[2], SHAPE[3]), (1, 1)),
           "banded_sim": ((SHAPE[2],), ()),
           "jaccard_band": ((SHAPE[3],), ())}
 
 
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
-    for _ in range(warm):
-        fn()
+def cuda_ms(fn) -> float:
+    """Median device time of ``fn`` in ms (CUDA events around each of
+    REPS calls, after two warm-up calls)."""
+    fn()
+    fn()
     times = []
-    for _ in range(reps):
+    for _ in range(REPS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -91,9 +93,9 @@ def build_alt(src_dir: Path) -> tuple:
     return libs, logs
 
 
-def inputs(seed: int = 0):
+def inputs():
     s, m, f, words, _ = SHAPE
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(0)
     feat = torch.randn((s, m, f), generator=g, device="cuda")
     feat /= feat.norm(dim=-1, keepdim=True) + 1e-9
     sig = torch.randint(-2**31, 2**31 - 1, (s, m, words), generator=g,
@@ -127,13 +129,13 @@ def with_rows(fn, name: str, rows: int):
     return run
 
 
-def in_turns(fns: dict, reps: int) -> dict:
+def in_turns(fns: dict) -> dict:
     """{label: [ms forward, ms reversed]}, timed in the order of ``fns``
     and then reversed."""
     order = list(fns) + list(reversed(list(fns)))
     out = {label: [] for label in fns}
     for label in order:
-        out[label].append(cuda_ms(fns[label], reps))
+        out[label].append(cuda_ms(fns[label]))
     return out
 
 
@@ -141,7 +143,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--alt", action="append", default=[])
     ap.add_argument("--rows", default="")
-    ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--kernels", default=",".join(BAND_KERNELS))
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
@@ -185,7 +186,7 @@ def main(argv=None) -> int:
                     fns[label] = fn
                 except RuntimeError as e:
                     errs[label] = str(e)
-        turns = in_turns(fns, args.reps)
+        turns = in_turns(fns)
         emit({"kernel": name,
               "rows": ops.band_rows(name, SHAPE[4], *WIDTHS[name]),
               "turns_ms": turns,
@@ -199,7 +200,7 @@ def main(argv=None) -> int:
                 continue
             fns = {str(rows): with_rows(launcher(name, feat, sig), name, rows)
                    for rows in tiles}
-            turns = in_turns(fns, args.reps)
+            turns = in_turns(fns)
             emit({"kernel": name, "row_tile_sweep_ms": turns,
                   "mean_ms": {k: statistics.mean(v)
                               for k, v in turns.items()}})

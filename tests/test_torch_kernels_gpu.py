@@ -56,13 +56,19 @@ def _launched_once(name, fn):
     (3, 1000, 32, 9, "f32"), (1, 300, 32, 10, "f32"),
     (1, 128, 256, 128, "f32"), (1, 1024, 256, 200, "f32"),
     (1, 8, 16, 16, "f32"), (2, 1000, 32, 9, "bf16"),
-    (1, 1024, 128, 200, "bf16")],
+    (1, 1024, 128, 200, "bf16"), (2, 1001, 33, 9, "f32"),
+    (2, 999, 64, 9, "f32"), (1, 700, 64, 256, "f32"),
+    (2, 1001, 33, 9, "bf16"), (3, 1000, 31, 7, "f32")],
     ids=["shards", "m300", "window-eq-block", "f256-w200", "m-below-window",
-         "bf16", "bf16-w200"])
+         "bf16", "bf16-w200", "f33-unaligned", "f64-wide-rows",
+         "f64-w256-halved", "bf16-f33", "f31-window7"])
 def test_banded_sim_kernel_matches_plain_version(cuda, s, m, f, window,
                                                  dtype):
     """K2 against its plain version: 1e-5 / atol 1e-4 in f32, 2e-2 / atol
-    2e-1 in bf16 (tests/test_kernels.py's tolerances)."""
+    2e-1 in bf16 (tests/test_kernels.py's tolerances), also at the corners
+    of its staged loads and stores: spans not 16-byte aligned (element
+    loads, scalar store head and tail), rows wider than the registers
+    hold, and a window that halves the row tile."""
     tol = 1e-5 if dtype == "f32" else 2e-2
     feat = torch.from_numpy(np.random.default_rng(m + window).normal(
         size=(s, m, f)).astype(np.float32)).to(cuda)
@@ -78,11 +84,18 @@ def test_banded_sim_kernel_matches_plain_version(cuda, s, m, f, window,
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,m,words,window,zero", [
     (3, 1000, 8, 9, False), (1, 130, 2, 8, False), (1, 192, 16, 32, False),
-    (1, 8, 4, 16, False), (2, 513, 8, 9, True)],
-    ids=["shards", "m130", "words16", "m-below-window", "all-zero"])
+    (1, 8, 4, 16, False), (2, 513, 8, 9, True), (2, 1001, 3, 9, False),
+    (2, 999, 16, 9, False), (1, 700, 3, 256, False), (3, 1000, 5, 7, False),
+    (8, 20_000, 8, 9, False)],
+    ids=["shards", "m130", "words16", "m-below-window", "all-zero",
+         "words3-unaligned", "words16-wide-rows", "words3-w256",
+         "words5-window7", "main-widths"])
 def test_jaccard_band_kernel_matches_plain_version(cuda, s, m, words,
                                                    window, zero):
-    """K3 against its plain version (1e-6); all-zero signatures give 0.0."""
+    """K3 against its plain version (1e-6), and bit for bit: integer
+    counts, the union by inclusion-exclusion, one IEEE division; also at
+    the corners of its staged loads and stores and at the main path's
+    widths.  All-zero signatures give 0.0."""
     sig = torch.from_numpy(np.random.default_rng(m).integers(
         -2**31, 2**31, size=(s, m, words)).astype(np.int32)).to(cuda)
     if zero:
@@ -92,6 +105,7 @@ def test_jaccard_band_kernel_matches_plain_version(cuda, s, m, words,
     want = ref.jaccard_band_ref(sig, window=window)
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-6,
                                atol=1e-6)
+    assert torch.equal(got, want)
     if zero:
         assert not to_np(got).any()
 
@@ -201,58 +215,6 @@ def test_local_attn_model_shape_head(cuda):
     want = ref.local_attention_ref(q, k, v, window=4096)
     np.testing.assert_allclose(to_np(got.float()), to_np(want.float()),
                                rtol=1e-2, atol=2e-3)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("s,m,f,window,dtype", [
-    (2, 1001, 33, 9, "f32"), (2, 999, 64, 9, "f32"),
-    (1, 700, 64, 256, "f32"), (2, 1001, 33, 9, "bf16"),
-    (3, 1000, 31, 7, "f32")],
-    ids=["f33-unaligned", "f64-wide-rows", "f64-w256-halved",
-         "bf16-f33", "f31-window7"])
-def test_banded_sim_kernel_staging_paths(cuda, s, m, f, window, dtype):
-    """K2's staged loads and stores at their corners: spans not 16-byte
-    aligned (element loads, scalar store head and tail), rows wider than
-    the registers hold, and a window that halves the row tile; at K2's
-    tolerances."""
-    tol = 1e-5 if dtype == "f32" else 2e-2
-    feat = torch.from_numpy(np.random.default_rng(f + m).normal(
-        size=(s, m, f)).astype(np.float32)).to(cuda)
-    if dtype == "bf16":
-        feat = feat.bfloat16()
-    got = _launched_once("banded_sim", lambda: ops.banded_dot_band(
-        feat, window=window))
-    want = ref.banded_sim_ref(feat, window=window)
-    np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol,
-                               atol=tol * 10)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("s,m,words,window", [
-    (2, 1001, 3, 9), (2, 999, 16, 9), (1, 700, 3, 256), (3, 1000, 5, 7)],
-    ids=["words3-unaligned", "words16-wide-rows", "words3-w256",
-         "words5-window7"])
-def test_jaccard_band_kernel_staging_paths(cuda, s, m, words, window):
-    """K3's staged loads and stores at their corners, bit for bit: integer
-    counts and one IEEE division."""
-    sig = torch.from_numpy(np.random.default_rng(words + m).integers(
-        -2**31, 2**31, size=(s, m, words)).astype(np.int32)).to(cuda)
-    sig[:, ::5] = 0
-    got = _launched_once("jaccard_band", lambda: ops.jaccard_band(
-        sig, window=window))
-    assert torch.equal(got, ref.jaccard_band_ref(sig, window=window))
-
-
-@pytest.mark.gpu
-def test_jaccard_band_kernel_bit_equal_to_plain_version(cuda):
-    """K3 at the main path's widths (8 shards, 8 words, window 9) equals
-    its plain version bit for bit: the union by inclusion-exclusion is an
-    exact integer."""
-    sig = torch.from_numpy(np.random.default_rng(14).integers(
-        -2**31, 2**31, size=(8, 20_000, 8)).astype(np.int32)).to(cuda)
-    got = _launched_once("jaccard_band", lambda: ops.jaccard_band(
-        sig, window=9))
-    assert torch.equal(got, ref.jaccard_band_ref(sig, window=9))
 
 
 @pytest.mark.gpu
