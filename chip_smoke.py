@@ -87,6 +87,8 @@ TOL_ATTN_MODEL = (1e-2, 2e-3)
 ATTN_SHAPES = (("mixtral-8x22b", 48, 8192, 128, 4096, 0.0),
                ("gemma2-9b", 16, 8192, 256, 4096, 50.0))
 ATTN_HEADS_CHECKED = 4      # the plain K4 materializes (heads, S, S) f32
+# cuda_ms's spin before each timed call: ~1 ms at the H100's 1.98 GHz
+SPIN_CYCLES = 2_000_000
 
 
 def emit(obj) -> None:
@@ -101,7 +103,11 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    """Median device time of ``fn`` in ms (CUDA events around each call).
+    Each call is queued behind a spin of SPIN_CYCLES on the stream, so the
+    start event is reached once the host has launched the call: without
+    it an idle card stamps the start at once and the host's launch work
+    (tens of microseconds, varying with the host) is counted."""
     import torch
     for _ in range(warm):
         fn()
@@ -109,6 +115,7 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -242,7 +249,7 @@ def _kernel_fused_band(feat, sig):
     n_bytes = feat.numel() * 4 + sig.numel() * 4 + s * m * window * 4
     rec = {"phase": "kernel", "name": "fused_band",
            "shape": {"S": s, "M": m, "F": f, "W": words, "window": window},
-           "rows": ops.band_rows("fused_band", window, (f, words), (1, 1)),
+           "rows": ops._band_rows("fused_band", window, (f, words), (1, 1)),
            "max_abs_err": errs, "tol": KERNEL_TOL,
            "ms": kernel_ms, "plain_ms": plain_ms,
            "effective_tb_per_s": n_bytes / kernel_ms / 1e9,
@@ -389,7 +396,7 @@ def _kernel_banded_sim(feat):
     rec = {"phase": "kernel", "name": "banded_sim",
            "shape": {"S": s, "M": m, "F": f, "window": window,
                      "dtype": "float32"},
-           "rows": ops.band_rows("banded_sim", window, (f,)),
+           "rows": ops._band_rows("banded_sim", window, (f,)),
            "max_abs_err": errs, "tol": {k: v for k, v in TOL.items()
                                         if k.startswith("banded_sim")},
            "ms": ms, "plain_ms": plain_ms,
@@ -443,7 +450,7 @@ def _kernel_jaccard_band(sig):
     # non-tensor rate)
     rec = {"phase": "kernel", "name": "jaccard_band",
            "shape": {"S": s, "M": m, "W": words, "window": window},
-           "rows": ops.band_rows("jaccard_band", window, (words,)),
+           "rows": ops._band_rows("jaccard_band", window, (words,)),
            "max_abs_err": errs, "tol": tol,
            "ms": ms, "plain_ms": plain_ms,
            "effective_tb_per_s": n_bytes / ms / 1e9,

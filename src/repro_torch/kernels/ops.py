@@ -166,14 +166,10 @@ def band_from_tiles(tiles: torch.Tensor, *, window: int,
 
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built from the checkout's sources."""
+    """The kernel library ``name`` with the argtypes of its C interface
+    (pointers and the stream as c_void_p, ints as c_int)."""
     from repro_torch.kernels import build
-    return bind(name, build.load(name))
-
-
-def bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib``, a build of kernel ``name``, with the argtypes of its C
-    interface (pointers and the stream as c_void_p, ints as c_int)."""
+    lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch, smem = {
         "fused_band": ([p] * 3 + [i] * 6 + [f, f, i, i, p], [i] * 6),
@@ -198,13 +194,11 @@ def _launched(name: str, lib: ctypes.CDLL, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def band_rows(name: str, window: int, widths, smem_extra: tuple = (),
-              lib: ctypes.CDLL = None) -> int:
+def _band_rows(name: str, window: int, widths,
+               smem_extra: tuple = ()) -> int:
     """The row tile of one launch of the band kernel ``name``:
-    ``_ROWS[name]`` halved until the block fits shared memory (``lib`` a
-    bound build of the kernel, the checkout's by default)."""
-    smem = getattr(_lib(name) if lib is None else lib,
-                   f"{name}_smem_bytes")
+    ``_ROWS[name]`` halved until the block fits shared memory."""
+    smem = getattr(_lib(name), f"{name}_smem_bytes")
     rows = _ROWS[name]
     while rows > 1 and smem(rows, window, *widths,
                             *smem_extra) > _MAX_SMEM:
@@ -216,20 +210,18 @@ def band_rows(name: str, window: int, widths, smem_extra: tuple = (),
 
 
 def _launch_band(name: str, inputs: tuple, window: int, *,
-                 extra: tuple = (), smem_extra: tuple = (),
-                 lib: ctypes.CDLL = None) -> torch.Tensor:
+                 extra: tuple = (), smem_extra: tuple = ()) -> torch.Tensor:
     """One launch of the band kernel ``name`` on (S, M, C) inputs (one for
     banded_sim and jaccard_band, feat and sig for fused_band), at the row
-    tile ``band_rows`` gives.  The C interface is ``launch(*inputs, out,
+    tile ``_band_rows`` gives.  The C interface is ``launch(*inputs, out,
     S, M, *widths, window, rows, *extra, stream)`` and ``smem_bytes(rows,
-    window, *widths, *smem_extra)``.  ``lib`` is a bound build of the
-    kernel (``bind``), the checkout's by default."""
-    lib = _lib(name) if lib is None else lib
+    window, *widths, *smem_extra)``."""
+    lib = _lib(name)
     s, m = inputs[0].shape[:2]
     widths = [x.shape[2] for x in inputs]
     if m >= 2**31 or s >= 2**16:
         raise ValueError(f"{name}: S={s}, M={m} exceed the kernel's grid")
-    rows = band_rows(name, window, widths, smem_extra, lib)
+    rows = _band_rows(name, window, widths, smem_extra)
     out = torch.empty((s, m, window), dtype=torch.float32,
                       device=inputs[0].device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
