@@ -28,16 +28,34 @@ Run from the root of a checkout.  Phases, one JSON line each:
   5. attention  ``kernels.ops.local_attn`` at one sliding-window layer of
               Mixtral-8x22B and of Gemma-2-9B (8k prefill, bf16)
   6. parity   resolve() on the card == the sequential host oracle, for
-              srp/repsn/jobsn x scan/pallas at n=200,000
+              srp/repsn/jobsn x scan/pallas at n=100,000 (cut from
+              200,000 to keep the script inside its time limit)
   7. main     the resolve main path at full size: the paper's 1.4M-record
               corpus, w=10, r=8, repsn hops=7, vmap runner, balanced
               partitioner, pallas band engine, emit="pairs", the paper's
               cascade, auto caps — blocked pairs, zero overflow, kernel
               launches, and the matched set equal to the scan engine's
+  8. planned  the profile planners at full size: phase 7's corpus and
+              config under pairrange and blocksplit (blocked and matched
+              sets equal phase 7's), and the skewed Zipfian corpus of
+              BENCH_balance.json at 1.4M records under uniform, blocksplit
+              and pairrange with the default cosine + Jaccard matcher
+              (blocked sets equal the sequential oracle, matches agree);
+              the planned shard shape, imbalance, resolve seconds, the
+              device program beside phase 7's, and K1 timed at each
+              planned shard shape
+  9. quality  the quality harness at full size: a 1.4M-record labeled
+              corpus (BENCH_recall.json's shape) resolved at fixed w=8,
+              adaptive windows 4..12 with and without evidence pruning
+              (K1 at window 11), and two-pass blocking (key, alt) at w=8;
+              PC / PQ / RR / F against the gold pairs, the adaptive and
+              multi-pass blocked sets against their host oracles
 
-Phases 4, 5 and 7 each set every launch count to 0 just before they drive
-their path and read the counts just after; each raises if a kernel of its
-path was not launched.  Then come the kernel table ``{"kernels": [...]}``,
+Phases 4, 5 and 7-9 each set every launch count to 0 just before they
+drive their path and read the counts just after; each raises if a kernel
+of its path was not launched, and phases 8 and 9 if K1 was not launched
+on every resolve (every pass of a multi-pass one).  Then come the kernel
+table ``{"kernels": [...]}``,
 the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
 phase raises on failure, so the script exits non-zero and prints no result
 line.  It exits non-zero without a CUDA card, and where ``src/repro_torch``
@@ -68,9 +86,14 @@ BOUND_BASIS = ("H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s f32 "
                "non-tensor, 989 TFLOP/s bf16 dense tensor")
 
 N_FULL = 1_400_000          # paper §5.1: 1.4M publication records
-N_PARITY = 200_000
+N_PARITY = 100_000         # cut from 200,000: the script's time limit
 N_KEYS = 26 ** 3            # three-letter title-prefix keys
 W, R, HOPS = 10, 8, 7
+# BENCH_balance.json's skewed corpus (zipf_entities), at the paper's scale
+ZIPF = dict(n_clusters=256, exponent=1.0, dup_frac=0.2)
+# BENCH_recall.json's labeled corpus and windows, at the paper's scale
+RECALL = dict(max_cluster=12, typo_rate=0.1)
+W_BASE, W_FIXED, W_MAX, PRUNE = 4, 8, 12, 0.55
 KERNEL_TOL = 1e-5           # tests/test_kernels.py's fused-band tolerance
 # tests/test_kernels.py's (rtol, atol) for K2-K4, held at the edge cases
 TOL = {"banded_sim/f32": (1e-5, 1e-4), "banded_sim/bf16": (2e-2, 2e-1),
@@ -232,6 +255,9 @@ def _kernel_fused_band(feat, sig):
         ("window7", 2, 1000, 32, 8, 7, 0.5, 0.5, False),
         # rows wider than the registers hold (read from shared memory)
         ("f64_w16_wide_rows", 2, 999, 64, 16, 9, 0.5, 0.5, False),
+        # phase quality's adaptive band (window_max 12) on planned shards
+        ("adaptive_window11", R, 178_000, 32, 8, W_MAX - 1, 0.5, 0.5,
+         False),
     ]
     for label, es, em, ef, ew, ewin, wc, wj, zs in edge:
         ef_, es_ = _band_inputs(es, em, max(ef, 2), max(ew, 1), 1,
@@ -813,7 +839,8 @@ def phase_parity():
                          "matched": len(res.matches),
                          "resolve_s": round(secs, 3),
                          "sequential_s": round(seq_s, 3)})
-    emit({"phase": "parity", "n": N_PARITY, "equal": True, "runs": rows})
+    emit({"phase": "parity", "n": N_PARITY, "equal": True, "runs": rows,
+          "reduced": ["n 200,000 -> 100,000: the script's time limit"]})
 
 
 def _device_busy(fn):
@@ -837,8 +864,9 @@ def _device_busy(fn):
 
 def _breakdown(ents, cfg):
     """One steady resolve taken apart: planning, the device shard program,
-    host collection into packed pairs, the public frozensets; plus the
-    device's busy time over the shard program (torch.profiler)."""
+    host collection into packed pairs; plus the device's busy time over
+    the shard program (torch.profiler).  Returns (record, the packed
+    outcome)."""
     from repro_torch import api
     from repro_torch.api import runners as RN
     from repro_torch.resilience.retry import autosize_caps
@@ -850,25 +878,26 @@ def _breakdown(ents, cfg):
     out, device_s = wall(lambda: runner.run_raw(ents, plan, run_cfg))
     packed, collect_s = wall(lambda: RN._device_outcome_packed(out, run_cfg,
                                                                 R))
-    _, sets_s = wall(packed.to_outcome)
     del out
-    # the dedup the host collection runs, against np.unique, on the same
-    # shuffled blocked pairs
+    busy_s, top = _device_busy(lambda: runner.run_raw(ents, plan, run_cfg))
+    return {"plan_s": plan_s, "device_program_s": device_s,
+            "host_collect_packed_s": collect_s,
+            "device_kernel_busy_s": busy_s, "top_kernels_s": top}, packed
+
+
+def _dedup_times(blocked):
+    """Seconds of the dedup the host collection runs (``unique_packed``)
+    against ``np.unique``, on the same shuffled blocked pairs."""
     import numpy as np
     from repro_torch.api.results import unique_packed
-    shuffled = np.random.default_rng(0).permutation(packed.blocked)
+    shuffled = np.random.default_rng(0).permutation(blocked)
     t0 = time.perf_counter()
     np.unique(shuffled)
     np_unique_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     unique_packed(shuffled)
-    sort_unique_s = time.perf_counter() - t0
-    busy_s, top = _device_busy(lambda: runner.run_raw(ents, plan, run_cfg))
-    return {"plan_s": plan_s, "device_program_s": device_s,
-            "host_collect_packed_s": collect_s, "frozensets_s": sets_s,
-            "dedup_np_unique_s": np_unique_s,
-            "dedup_unique_packed_s": sort_unique_s,
-            "device_kernel_busy_s": busy_s, "top_kernels_s": top}
+    return {"dedup_np_unique_s": np_unique_s,
+            "dedup_unique_packed_s": time.perf_counter() - t0}
 
 
 def phase_main():
@@ -903,7 +932,10 @@ def phase_main():
         raise AssertionError("main path matched nothing")
 
     steady_s = wall(run)[1]
-    breakdown = _breakdown(ents, cfg)
+    breakdown, packed = _breakdown(ents, cfg)
+    breakdown["frozensets_s"] = wall(packed.to_outcome)[1]
+    breakdown.update(_dedup_times(packed.blocked))
+    del packed
 
     scan, scan_s = wall(lambda: run(cfg.with_(band_engine="scan")))
     if scan.matches != res.matches or scan.blocking.pairs != \
@@ -929,6 +961,279 @@ def phase_main():
            "max_memory_allocated": peak,
            "scan_s": scan_s, "scan_matched_equal": True}
     emit(rec)
+    return rec, ents, _packed_sets(res)
+
+
+def _k1_launches() -> int:
+    from repro_torch.kernels import ops
+    return ops.launch_counts()["fused_band"]
+
+
+def _counted_resolve(ents, cfg, label, passes=1):
+    """(result, seconds) of one ``api.resolve`` on the card; raises unless
+    K1 was launched at least once for each of its ``passes``."""
+    from repro_torch import api
+    before = _k1_launches()
+    res, secs = wall(lambda: api.resolve(ents, cfg, device="cuda"))
+    if _k1_launches() - before < passes:
+        raise AssertionError(f"{label}: K1 launched {_k1_launches() - before}"
+                             f" times over {passes} pass(es)")
+    return res, secs
+
+
+def _packed_sets(res):
+    """(blocked, matched) of a result as sorted packed uint64 arrays."""
+    from repro_torch.api.results import pack_pair_set
+    return pack_pair_set(res.blocking.pairs), pack_pair_set(res.matches)
+
+
+def _oracle_packed(keys, eids, window=None, weff=None):
+    """The sequential SN oracle (``weff``: the adaptive one) as a sorted
+    packed pair array.  Runs in a worker process: the oracles are Python
+    loops over millions of pairs, so they overlap the resolves."""
+    from repro_torch.api.results import pack_pair_set
+    from repro_torch.core import sn
+    if weff is None:
+        return pack_pair_set(sn.sequential_sn_pairs(keys, eids, window))
+    return pack_pair_set(sn.adaptive_sn_pairs(keys, eids, weff))
+
+
+def _oracle_pool(workers):
+    """A pool of spawned processes for ``_oracle_packed`` (spawn: this
+    process holds CUDA and threads)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(max_workers=workers,
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+def _planned_run(ents, cfg, label):
+    """One corpus resolved under one profile planner: the plan first (its
+    shard shape), then a cold and a steady resolve and one taken apart.
+    Returns (record, packed blocked, packed matched)."""
+    import numpy as np
+    from repro_torch import api
+    plan = api.plan_shards(ents, cfg, R)
+    res, cold_s = _counted_resolve(ents, cfg, label)
+    _zero_overflow(res, label)
+    blocked, matched = _packed_sets(res)
+    bal = res.balance
+    del res
+    steady_s = _counted_resolve(ents, cfg, label)[1]
+    breakdown = _breakdown(ents, cfg)[0]
+    rec = {"label": label, "partitioner": cfg.partitioner,
+           "cap_link": plan.cap_link,
+           "rows_per_shard": R * plan.cap_link + cfg.window - 1,
+           "dest_routing": plan.dest is not None,
+           "rank_granular": plan.rank_granular,
+           "planned_load_max": int(np.max(plan.planned_load)),
+           "imbalance_planned": bal.imbalance_planned,
+           "imbalance_realized": bal.imbalance_realized,
+           "blocked": int(blocked.size), "matched": int(matched.size),
+           "cold_s": cold_s, "steady_s": steady_s,
+           "device_program_s": breakdown["device_program_s"],
+           "device_kernel_busy_s": breakdown["device_kernel_busy_s"],
+           "breakdown": breakdown}
+    return rec, blocked, matched
+
+
+def _k1_at(rows, label):
+    """K1 at one planned shard shape (R shards of ``rows`` rows, window
+    W-1): held against its plain version and timed."""
+    import torch
+    from repro_torch.kernels import ops
+    feat, sig = _band_inputs(R, rows, 32, 8, 3)
+    err = _check_band(feat, sig, W - 1, 0.5, 0.5, label)
+    ms = cuda_ms(lambda: ops.fused_cheap_band(feat, sig, window=W - 1,
+                                              w_cos=0.5, w_jac=0.5), reps=50)
+    n_bytes = feat.numel() * 4 + sig.numel() * 4 + R * rows * (W - 1) * 4
+    del feat, sig
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ms": ms, "max_abs_err": err,
+            **_bound(n_bytes, _band_pairs(R, rows, W - 1) * (2 * 32 + 6 * 8),
+                     F32_OPS_PER_S)}
+
+
+def _assert_equal(label, got, want):
+    import numpy as np
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: {got.size} vs {want.size} pairs, "
+                             f"{np.setdiff1d(got, want).size} only in the "
+                             f"first, {np.setdiff1d(want, got).size} only "
+                             f"in the second")
+
+
+def _planned_main(main_ents, main_sets):
+    """Phase main's corpus and config under pairrange and blocksplit: the
+    blocked and matched sets must equal phase main's."""
+    from repro_torch import api
+    main_cfg = api.ERConfig(**_cfg_kw(variant="repsn", runner="vmap",
+                                      band_engine="pallas"))
+    runs = []
+    for planner in ("pairrange", "blocksplit"):
+        rec, blocked, matched = _planned_run(
+            main_ents, main_cfg.with_(partitioner=planner),
+            f"planned main/{planner}")
+        _assert_equal(f"planned main/{planner} blocked", blocked,
+                      main_sets[0])
+        _assert_equal(f"planned main/{planner} matched", matched,
+                      main_sets[1])
+        runs.append(dict(rec, corpus="main"))
+    return runs
+
+
+def phase_planned(main_rec, main_ents, main_sets):
+    """M6 at full size: (a) phase main's corpus and config under pairrange
+    and blocksplit; (b) the skewed Zipfian corpus under uniform, blocksplit
+    and pairrange with the default matcher."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import sn
+    from repro_torch.data import zipf_entities
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    zipf, zipf_s = wall(lambda: zipf_entities(0, N_FULL, **ZIPF,
+                                              device="cuda"))
+    with _oracle_pool(1) as pool:
+        job = pool.submit(_oracle_packed, zipf["key"].cpu().numpy(),
+                          zipf["eid"].cpu().numpy(), W)
+        runs = _planned_main(main_ents, main_sets)
+        oracle, oracle_wait_s = wall(job.result)
+    expected = sn.expected_pair_count(N_FULL, W)
+    if oracle.size != expected:
+        raise AssertionError(f"zipf oracle {oracle.size} != {expected}")
+    zipf_cfg = api.ERConfig(window=W, num_shards=R, hops=HOPS,
+                            variant="repsn", runner="vmap",
+                            band_engine="pallas", emit="pairs")
+    zipf_matched = None
+    for planner in ("uniform", "blocksplit", "pairrange"):
+        label = f"planned zipf/{planner}"
+        rec, blocked, matched = _planned_run(
+            zipf, zipf_cfg.with_(partitioner=planner), label)
+        _assert_equal(f"{label} blocked vs sequential oracle", blocked,
+                      oracle)
+        if zipf_matched is None:
+            zipf_matched = matched
+        _assert_equal(f"{label} matched vs uniform", matched, zipf_matched)
+        if planner == "blocksplit" and not rec["dest_routing"]:
+            raise AssertionError(f"{label}: the hot block was not split")
+        runs.append(dict(rec, corpus="zipf"))
+        del blocked, matched
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    del zipf, oracle
+    torch.cuda.empty_cache()
+
+    # K1 at each planned shard shape (after the counts were read)
+    k1 = {}
+    for run in runs:
+        rows = run["rows_per_shard"]
+        if rows not in k1:
+            k1[rows] = _k1_at(rows, f"planned shape {rows}")
+        run["k1_ms_at_shard_shape"] = k1[rows]["ms"]
+    rec = {"phase": "planned", "n": N_FULL, "w": W, "r": R, "hops": HOPS,
+           "reduced": [], "zipf": dict(ZIPF, seed=0),
+           "zipf_make_s": zipf_s, "zipf_oracle_wait_s": oracle_wait_s,
+           "expected_blocked": expected, "launches": launches,
+           "main": {k: main_rec[k] for k in ("rows_per_shard", "cold_s",
+                                             "steady_s")}
+           | {k: main_rec["breakdown"][k] for k in ("device_program_s",
+                                                    "device_kernel_busy_s")},
+           "runs": runs, "k1_at_shard_shapes": list(k1.values())}
+    emit(rec)
+    return rec
+
+
+def phase_quality():
+    """M7 at full size: a labeled corpus with typos resolved at fixed w=8,
+    with adaptive windows (with and without evidence pruning) and with two
+    passes (key, alt); quality against the gold pairs, blocked sets against
+    the host oracles (computed in worker processes during the resolves)."""
+    import numpy as np
+    import torch
+    from repro_torch import api, quality
+    from repro_torch.api.results import pack_pair_set
+    from repro_torch.balance import profile_keys
+    from repro_torch.core import keys as K
+    from repro_torch.data import labeled_corpus
+    from repro_torch.kernels import ops
+
+    tc, make_s = wall(lambda: labeled_corpus(1, N_FULL, **RECALL,
+                                             device="cuda"))
+    base = api.ERConfig(window=W_FIXED, num_shards=R, hops=HOPS,
+                        variant="repsn", runner="vmap", band_engine="pallas",
+                        emit="pairs", partitioner="pairrange")
+    adaptive = base.with_(window=W_BASE, window_policy="adaptive",
+                          window_max=W_MAX)
+    passes = (api.SortKeySpec(name="key"),
+              api.SortKeySpec(name="alt", source="alt"))
+    configs = [("fixed8", base, 1), ("adaptive", adaptive, 1),
+               ("adaptive_pruned", adaptive.with_(
+                   prune_policy="evidence", prune_threshold=PRUNE), 1),
+               ("multipass8", base.with_(passes=passes), len(passes))]
+    keys = tc.ents["key"].cpu().numpy()
+    eids = tc.ents["eid"].cpu().numpy()
+    weff = quality.weff_for_keys(keys, profile_keys(keys, window=W_BASE),
+                                 W_BASE, W_MAX)
+    runs, q, blocked = {}, {}, {}
+    with _oracle_pool(len(passes) + 1) as pool:
+        jobs = [pool.submit(_oracle_packed, keys, eids, weff=weff)] + [
+            pool.submit(_oracle_packed,
+                        K.derive_sort_key(tc.ents, spec).cpu().numpy(),
+                        eids, W_FIXED) for spec in passes]
+        ops.reset_launch_counts()
+        for label, cfg, n_passes in configs:
+            res, secs = _counted_resolve(tc.ents, cfg, f"quality {label}",
+                                         n_passes)
+            for part in getattr(res, "passes", (res,)):
+                _zero_overflow(part, f"quality {label}")
+            blocked[label] = pack_pair_set(res.blocking.pairs)
+            if label == "multipass8":
+                blocked["passes"] = [pack_pair_set(p.blocking.pairs)
+                                     for p in res.passes]
+            q[label] = quality.evaluate(blocked[label], tc)
+            runs[label] = {"resolve_s": secs,
+                           "pc": q[label].pairs_completeness,
+                           "pq": q[label].pairs_quality,
+                           "rr": q[label].reduction_ratio,
+                           "f": q[label].f_measure,
+                           "blocked": q[label].blocked_pairs,
+                           "true_positives": q[label].true_positives,
+                           "pruned": res.blocking.pruned,
+                           "matched": len(res.matches)}
+            del res
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        oracles, oracle_wait_s = wall(lambda: [j.result() for j in jobs])
+
+    _assert_equal("quality adaptive vs adaptive_sn_pairs",
+                  blocked["adaptive"], oracles[0])
+    _assert_equal("quality multipass union vs its passes",
+                  blocked["multipass8"], np.union1d(*blocked["passes"]))
+    _assert_equal("quality multipass union vs the per-pass oracles",
+                  blocked["multipass8"], np.union1d(*oracles[1:]))
+    fixed, adapt = q["fixed8"], q["adaptive"]
+    if not (adapt.pairs_completeness >= fixed.pairs_completeness and
+            adapt.reduction_ratio >= fixed.reduction_ratio):
+        raise AssertionError(f"quality: adaptive PC {adapt.pairs_completeness}"
+                             f" RR {adapt.reduction_ratio} vs fixed-8 PC "
+                             f"{fixed.pairs_completeness} RR "
+                             f"{fixed.reduction_ratio}")
+    if runs["adaptive_pruned"]["pruned"] <= 0:
+        raise AssertionError("quality: evidence pruning pruned nothing")
+    rec = {"phase": "quality", "n": N_FULL, "r": R, "hops": HOPS,
+           "partitioner": "pairrange", "reduced": [],
+           "corpus": dict(RECALL, seed=1, n_units=tc.n_units,
+                          gold_pairs=int(tc.gold_packed.size),
+                          n_typos=tc.n_typos, max_block=tc.max_block),
+           "windows": {"fixed": W_FIXED, "base": W_BASE, "max": W_MAX,
+                       "prune_threshold": PRUNE},
+           "corpus_make_s": make_s, "oracle_wait_s": oracle_wait_s,
+           "launches": launches, "runs": runs}
+    emit(rec)
+    del tc
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -959,10 +1264,16 @@ def main() -> int:
     bands = phase_bands(recs)
     attention = phase_attention()
     phase_parity()
-    main_rec = phase_main()
-    # launches on each kernel's path: K1 on the resolve main path, K2 and
-    # K3 on the entry point's bands, K4 on its attention
-    launches = {"fused_band": main_rec["kernel_launches"]["fused_band"],
+    main_rec, main_ents, main_sets = phase_main()
+    planned = phase_planned(main_rec, main_ents, main_sets)
+    del main_ents, main_sets
+    quality = phase_quality()
+    # launches on each kernel's path: K1 on the resolve paths (main,
+    # planned, quality), K2 and K3 on the entry point's bands, K4 on its
+    # attention
+    launches = {"fused_band": sum(rec[k]["fused_band"] for rec, k in (
+                    (main_rec, "kernel_launches"), (planned, "launches"),
+                    (quality, "launches"))),
                 "banded_sim": bands["launches"]["banded_sim"],
                 "jaccard_band": bands["launches"]["jaccard_band"],
                 "local_attn": attention["launches"]["local_attn"]}

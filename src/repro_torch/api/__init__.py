@@ -8,38 +8,44 @@
     res.blocking.pairs      # frozenset of blocked (candidate) pairs
     res.matches             # frozenset of matcher-accepted pairs
 
-Runs on the CUDA card unless ``device="cpu"`` is passed.
+Runs on the CUDA card unless ``device="cpu"`` is passed.  Under
+``ERConfig(passes=...)`` ``resolve`` returns a ``MultiPassResult``.
 """
 from repro_torch.api.config import ERConfig, SortKeySpec
 from repro_torch.api.facade import default_bounds, link, make_runner, \
     resolve
 from repro_torch.api.linkage import sequential_link_pairs, tag_sources
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
-                                     ERMetrics, ERResult, PerfStats,
-                                     ResilienceStats, pack_pairs,
+                                     ERMetrics, ERResult, MultiPassResult,
+                                     PerfStats, ResilienceStats, pack_pairs,
                                      packed_pairs_from_band,
                                      packed_pairs_from_idx,
                                      packed_pairs_from_part,
-                                     packed_to_frozenset, unpack_pairs)
+                                     packed_to_frozenset, pairs_from_band,
+                                     unpack_pairs)
 from repro_torch.api.runners import (PackedOutcome, Runner, RunnerOutcome,
                                      SequentialRunner, VmapRunner,
                                      shard_input)
 from repro_torch.api.variants import (available_variants, get_variant,
                                       register_variant)
-from repro_torch.balance import KeyProfile, ShardPlan, plan_shards, \
-    profile_keys
+from repro_torch.balance import (KeyProfile, ShardPlan,
+                                 available_partitioners, get_partitioner,
+                                 plan_shards, profile_keys,
+                                 register_partitioner)
 from repro_torch.core.window import (available_band_engines,
                                      get_band_engine, register_band_engine)
 
 __all__ = [
     "ERConfig", "SortKeySpec", "resolve", "link", "make_runner",
     "default_bounds", "BlockingResult", "ERResult", "ERMetrics",
-    "BalanceMetrics", "PerfStats", "ResilienceStats",
-    "packed_pairs_from_band", "packed_pairs_from_idx",
+    "BalanceMetrics", "PerfStats", "ResilienceStats", "MultiPassResult",
+    "pairs_from_band", "packed_pairs_from_band", "packed_pairs_from_idx",
     "packed_pairs_from_part", "pack_pairs", "unpack_pairs",
     "packed_to_frozenset", "Runner", "RunnerOutcome", "PackedOutcome",
     "SequentialRunner", "VmapRunner", "shard_input", "register_variant",
     "get_variant", "available_variants", "register_band_engine",
     "get_band_engine", "available_band_engines", "KeyProfile", "ShardPlan",
-    "profile_keys", "plan_shards", "tag_sources", "sequential_link_pairs",
+    "profile_keys", "plan_shards", "register_partitioner",
+    "get_partitioner", "available_partitioners", "tag_sources",
+    "sequential_link_pairs",
 ]

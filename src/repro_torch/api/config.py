@@ -4,11 +4,12 @@
 The port accepts every field and every config string of the reference and
 repeats its validation, so one kwargs dict builds both packages' configs
 (``matcher`` may be either package's cascade: it is converted to this
-package's ``CascadeMatcher``).  Fields whose feature is not ported yet are
-accepted here and refused by ``api.resolve`` with NotImplementedError
-naming the ROADMAP item.  ``band_interpret`` and ``jit_cache`` steer the
-reference's Pallas interpreter and executable cache, which the port does
-not have: they are accepted and have no effect.
+package's ``CascadeMatcher``).  Fields whose feature is not ported yet
+(``trace``, ``runner="shard_map"``) are accepted here and refused by
+``api.resolve`` with NotImplementedError naming the ROADMAP item.
+``band_interpret`` and ``jit_cache`` steer the reference's Pallas
+interpreter and executable cache, which the port does not have: they are
+accepted and have no effect.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from repro_torch.core.match import (CascadeMatcher, as_matcher,
 
 VARIANTS = ("srp", "repsn", "jobsn")
 RUNNERS = ("sequential", "vmap", "shard_map")
-# legacy boundary derivations + the reference's profile planners (the
-# latter accepted here, not ported yet: ROADMAP M6)
+# legacy boundary derivations + the built-in profile planners (any name
+# registered with balance.register_partitioner is accepted too)
 PARTITIONERS = ("balanced", "range", "sample",
                 "uniform", "blocksplit", "pairrange")
 BAND_ENGINES = ("scan", "pallas")
@@ -100,10 +101,15 @@ class ERConfig:
                    ladder, as in the reference (None caps auto-size)
       runner       "sequential" (host oracle) | "vmap" (r shards on one
                    device, as an explicit shard dim); "shard_map" is M11
-      num_shards, partitioner ("balanced" | "range" | "sample"; the
-                   profile planners are M6), linkage, compute_metrics
-      passes, window_policy="adaptive", window_max (M7), trace (M10)
-                   accepted, refused by resolve until ported
+      num_shards, partitioner (legacy "balanced" | "range" | "sample",
+                   the planners "uniform" | "blocksplit" | "pairrange", or
+                   a registered planner), linkage, compute_metrics
+      passes       multi-pass blocking: one resolve per SortKeySpec and
+                   the union (a ``MultiPassResult``)
+      window_policy, window_max
+                   "adaptive" grows each entity's window from ``window``
+                   to its key block's density, capped at ``window_max``
+      trace        accepted, refused by resolve until ported (M10)
       prune_policy, prune_threshold
                    evidence pruning, as in the reference
       band_interpret, jit_cache
@@ -156,8 +162,14 @@ class ERConfig:
             raise ValueError(f"unknown runner {self.runner!r}; "
                              f"choose from {RUNNERS}")
         if self.partitioner not in PARTITIONERS:
-            raise ValueError(f"unknown partitioner {self.partitioner!r}; "
-                             f"choose from {PARTITIONERS}")
+            # planners registered via balance.register_partitioner are
+            # first-class citizens of the config surface
+            from repro_torch.balance.planners import available_partitioners
+            if self.partitioner not in available_partitioners():
+                raise ValueError(
+                    f"unknown partitioner {self.partitioner!r}; choose from "
+                    f"{PARTITIONERS} or a registered planner "
+                    f"({available_partitioners()})")
         if self.num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {self.num_shards}")
         if self.band_engine not in BAND_ENGINES:

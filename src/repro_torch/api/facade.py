@@ -6,8 +6,12 @@ results together (port of ``repro.api.facade``).
     linked = api.link(ents_r, ents_s, api.ERConfig(window=6))
 
 Shard boundaries come from ``cfg.partitioner`` (profile -> plan ->
-execute); explicit ``bounds`` (a raw array or a ShardPlan) always win.
-``device=None`` runs on the CUDA card and raises without one.
+execute): a legacy boundary derivation (balanced | range | sample) or a
+profile-backed planner (uniform | blocksplit | pairrange); explicit
+``bounds`` (a raw array or a ShardPlan) always win.  ``cfg.passes`` runs
+multi-pass blocking (a ``MultiPassResult``), ``window_policy="adaptive"``
+per-entity windows.  ``device=None`` runs on the CUDA card and raises
+without one.
 """
 from __future__ import annotations
 
@@ -20,9 +24,11 @@ from repro_torch import obs as OBS
 from repro_torch.api import linkage as LK
 from repro_torch.api.config import ERConfig
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
-                                     ERResult, PerfStats, compute_metrics)
+                                     ERResult, MultiPassResult, PerfStats,
+                                     compute_metrics)
 from repro_torch.api.runners import Runner, SequentialRunner, VmapRunner
 from repro_torch.core import entities as E
+from repro_torch.core import keys as K
 from repro_torch.core import sn
 from repro_torch.device import resolve_device
 from repro_torch.resilience import retry as RZ
@@ -32,12 +38,8 @@ def _refuse_unported(cfg: ERConfig) -> None:
     """Features of the reference that the port does not have yet raise,
     naming their ROADMAP item — never silently something else."""
     unported = [
-        (bool(cfg.passes), "multi-pass blocking (passes)", "M7"),
-        (cfg.window_policy == "adaptive", "window_policy='adaptive'", "M7"),
         (cfg.trace, "trace=True", "M10"),
         (cfg.runner == "shard_map", "runner='shard_map'", "M11"),
-        (cfg.partitioner in B.planners.PROFILE_PLANNERS,
-         f"partitioner={cfg.partitioner!r}", "M6"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -75,7 +77,9 @@ def _total_comparisons(ents: dict, cfg: ERConfig) -> int:
 
 def _host_oracle(ents: dict, cfg: ERConfig):
     """Sequential-SN oracle pair set (cross-source-filtered in linkage
-    mode)."""
+    mode).  Adaptive-window runs get the adaptive oracle: the attached
+    ``_weff`` when the entity set carries one, else weff recomputed from
+    the key profile (the same function the device path uses)."""
     host = E.to_host(ents)
     valid = host["valid"]
     keys = host["key"][valid]
@@ -83,9 +87,35 @@ def _host_oracle(ents: dict, cfg: ERConfig):
     if cfg.linkage and "src" in host["payload"]:
         src = host["payload"]["src"][valid]
         return LK.sequential_link_pairs(keys, eids, src, cfg.window)
+    weff = None
     if "_weff" in host["payload"]:
-        return sn.adaptive_sn_pairs(keys, eids, host["payload"]["_weff"][valid])
+        weff = host["payload"]["_weff"][valid]
+    elif cfg.window_policy == "adaptive":
+        from repro_torch import quality as Q
+        profile = B.profile_keys(keys, window=cfg.window)
+        weff = Q.weff_for_keys(keys, profile, cfg.window, cfg.window_max)
+    if weff is not None:
+        return sn.adaptive_sn_pairs(keys, eids, weff)
     return sn.sequential_sn_pairs(keys, eids, cfg.window)
+
+
+def _adaptive_rewrite(ents: dict, cfg: ERConfig):
+    """Realize ``window_policy="adaptive"``: attach the per-entity
+    effective windows as an int32 ``_weff`` payload tensor on the
+    entities' device (a pure function of the global key profile, so it
+    rides every shuffle and halo) and rewrite ``window`` to ``window_max``
+    — the one width the band runs at.  ``window_policy``/``window_max``
+    stay set, so downstream code still sees the run is adaptive."""
+    import torch
+
+    from repro_torch import quality as Q
+    keys = ents["key"].cpu().numpy()
+    profile = B.profile_keys(keys, window=cfg.window,
+                             valid=ents["valid"].cpu().numpy())
+    weff = Q.weff_for_keys(keys, profile, cfg.window, cfg.window_max)
+    ents = dict(ents, payload=dict(ents["payload"], _weff=torch.as_tensor(
+        weff, dtype=torch.int32, device=ents["key"].device)))
+    return ents, cfg.with_(window=cfg.window_max)
 
 
 def _balance_metrics(plan: B.ShardPlan, out, window: int):
@@ -106,18 +136,25 @@ def _balance_metrics(plan: B.ShardPlan, out, window: int):
         cap_link=plan.cap_link)
 
 
-def resolve(ents: dict, cfg: ERConfig, *, bounds=None,
-            device=None) -> ERResult:
+def resolve(ents: dict, cfg: ERConfig, *, bounds=None, device=None):
     """Run the configured ER pipeline over one entity set (a port entity
     dict, on any device; it is moved to ``device``).
 
     ``bounds``: explicit partition boundaries ((r-1,) int32) or a
     ``ShardPlan``; planned from ``cfg.partitioner`` when omitted.
     ``device``: None = the CUDA card (raises without one); pass "cpu" to
-    run on the CPU.  The sequential runner always runs on the host."""
+    run on the CPU.  The sequential runner always runs on the host.
+
+    Returns an ``ERResult`` — or, when ``cfg.passes`` selects multi-pass
+    blocking, a ``MultiPassResult`` holding the per-pass ERResults plus
+    the union pair sets."""
     device = resolve_device(device)
     _refuse_unported(cfg)
     ents = E.to_device(ents, device)
+    if cfg.passes:
+        return _resolve_multipass(ents, cfg, bounds=bounds, device=device)
+    if cfg.window_policy == "adaptive":
+        ents, cfg = _adaptive_rewrite(ents, cfg)
     runner = make_runner(cfg, device=device)
     n_valid = int(ents["valid"].sum())
     with OBS.span("plan", partitioner=cfg.partitioner, n=n_valid):
@@ -189,22 +226,105 @@ def resolve(ents: dict, cfg: ERConfig, *, bounds=None,
                     resilience=resilience)
 
 
+def _rekeyed(ents: dict, spec) -> dict:
+    """Entity set with its sort key replaced by ``spec``'s derivation (the
+    per-pass view multi-pass blocking resolves; payload/eid/valid shared)."""
+    return {"key": K.derive_sort_key(ents, spec), "eid": ents["eid"],
+            "valid": ents["valid"], "payload": ents["payload"]}
+
+
+def union_blocking(results, cfg, runner_name: str) -> BlockingResult:
+    """Union BlockingResult across passes: pair union + additive accounting
+    (``load`` stays empty — per-pass shard loads live on the pass results).
+    ``results`` is any sequence of objects carrying ``.blocking``."""
+    union = frozenset().union(*(r.blocking.pairs for r in results))
+    return BlockingResult(
+        pairs=union, load=(),
+        overflow=sum(r.blocking.overflow for r in results),
+        variant=cfg.variant, runner=runner_name, window=cfg.window,
+        num_shards=results[0].blocking.num_shards,
+        cand_overflow=sum(r.blocking.cand_overflow for r in results),
+        matcher_evals=sum(r.blocking.matcher_evals for r in results),
+        pair_overflow=sum(r.blocking.pair_overflow for r in results),
+        pruned=sum(r.blocking.pruned for r in results))
+
+
+def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds,
+                       device) -> MultiPassResult:
+    """One full single-pass resolve per SortKeySpec + the pair-set union.
+
+    Explicit ``bounds`` are rejected: each pass sorts by a different
+    derived key, so per-pass boundaries are planned from
+    ``cfg.partitioner``.  With metrics, each pass's sequential host oracle
+    is computed once here (per-pass resolves run metric-less) and serves
+    both the pass's own metrics and the union metrics."""
+    if bounds is not None:
+        raise ValueError(
+            "explicit bounds cannot be shared across multi-pass sort keys "
+            "(each pass sorts by a different derived key); drop bounds and "
+            "let cfg.partitioner plan each pass, or run passes manually")
+    sub = cfg.with_(passes=(), compute_metrics=False)
+    results = []
+    union_oracle: set = set()
+    for spec in cfg.passes:
+        with OBS.span("pass", name=spec.name, kind=spec.kind):
+            pents = _rekeyed(ents, spec)
+            res = resolve(pents, sub, device=device)
+            if cfg.compute_metrics:
+                with OBS.span("metrics"):
+                    oracle = _host_oracle(pents, sub)
+                    union_oracle |= oracle
+                    res = _replace(res, metrics=_replace(
+                        compute_metrics(res.blocking.pairs, oracle,
+                                        _total_comparisons(ents, cfg)),
+                        balance=res.balance))
+        results.append(res)
+    results = tuple(results)
+    matches = frozenset().union(*(r.matches for r in results))
+    blocking = union_blocking(results, cfg, results[0].blocking.runner)
+    metrics = None
+    if cfg.compute_metrics:
+        metrics = compute_metrics(blocking.pairs, union_oracle,
+                                  _total_comparisons(ents, cfg))
+    rz = [r.resilience for r in results if r.resilience is not None]
+    resilience = None if not rz else RZ.ResilienceStats(
+        policy=rz[0].policy,
+        retries=sum(x.retries for x in rz),
+        escalations=sum(x.escalations for x in rz),
+        cand_cap=max(x.cand_cap for x in rz),
+        pair_cap=max(x.pair_cap for x in rz),
+        auto_caps=any(x.auto_caps for x in rz))
+    return MultiPassResult(passes=results,
+                           pass_names=tuple(p.name for p in cfg.passes),
+                           blocking=blocking, matches=matches,
+                           metrics=metrics, resilience=resilience)
+
+
 def _untag_blocking(b: BlockingResult, offset: int) -> BlockingResult:
     """A BlockingResult's pairs mapped from the merged linkage eid space
     back to (lhs_eid, rhs_eid); every other field carried through."""
     return _replace(b, pairs=frozenset(LK.untag_pairs(b.pairs, offset)))
 
 
-def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None,
-         device=None) -> ERResult:
+def _untag(res, offset: int):
+    """An ERResult or MultiPassResult with its blocked and matched pairs
+    mapped back to each source's id space."""
+    return _replace(res, blocking=_untag_blocking(res.blocking, offset),
+                    matches=frozenset(LK.untag_pairs(res.matches, offset)))
+
+
+def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, device=None):
     """Dual-source linkage R x S: blocked/matched pairs are CROSS-SOURCE
     only, returned as (lhs_eid, rhs_eid) in each source's own id space.
     Both sources must share one payload schema.  ``device`` as in
-    ``resolve``."""
+    ``resolve``.  Returns an ``ERResult`` (or ``MultiPassResult`` under
+    ``cfg.passes``, with union and per-pass pairs all mapped back)."""
     device = resolve_device(device)
     cfg = cfg.with_(linkage=True)
     ents, offset = LK.tag_sources(E.to_device(lhs, device),
                                   E.to_device(rhs, device))
     res = resolve(ents, cfg, bounds=bounds, device=device)
-    return _replace(res, blocking=_untag_blocking(res.blocking, offset),
-                    matches=frozenset(LK.untag_pairs(res.matches, offset)))
+    if isinstance(res, MultiPassResult):
+        res = _replace(res, passes=tuple(_untag(r, offset)
+                                         for r in res.passes))
+    return _untag(res, offset)

@@ -156,7 +156,8 @@ class ERMetrics:
     total_comparisons: int
     balance: Optional[BalanceMetrics] = None
     resilience: Optional[ResilienceStats] = None
-    quality: Optional[object] = None  # ground-truth metrics (M7)
+    quality: Optional[object] = None  # quality.QualityMetrics vs gold
+    #                                   pairs (quality.attach)
 
 
 @dataclass(frozen=True)
@@ -219,6 +220,40 @@ class ERResult:
         return self.blocking.pairs
 
 
+@dataclass(frozen=True)
+class MultiPassResult:
+    """Outcome of a multi-pass run (``ERConfig.passes`` non-empty).
+
+    One full ER pipeline execution per ``SortKeySpec``; the top-level
+    ``blocking``/``matches`` hold the UNION across passes, while ``passes``
+    keeps each pass's complete single-pass ``ERResult``.  The union
+    ``blocking`` sums overflow / cand_overflow / pair_overflow /
+    matcher_evals / pruned and leaves ``load`` empty (per-pass shard loads
+    live on ``passes[i].blocking.load``).  ``metrics`` (when requested)
+    compares the union pair set against the union of the per-pass
+    sequential oracles."""
+    passes: Tuple[ERResult, ...]
+    pass_names: Tuple[str, ...]
+    blocking: BlockingResult
+    matches: FrozenSet[Pair]
+    metrics: Optional[ERMetrics] = None
+    resilience: Optional[ResilienceStats] = None  # summed across passes
+    trace: Optional[object] = None  # trace report (M10; always None)
+
+    @property
+    def pairs(self) -> FrozenSet[Pair]:
+        """The union blocked pair set — sugar for blocking.pairs."""
+        return self.blocking.pairs
+
+    def pass_result(self, name: str) -> ERResult:
+        """The single-pass ERResult for the pass named ``name``."""
+        try:
+            return self.passes[self.pass_names.index(name)]
+        except ValueError:
+            raise KeyError(f"no pass named {name!r}; passes: "
+                           f"{self.pass_names}") from None
+
+
 # -- pair extraction (band mask -> host pairs) --------------------------------------
 
 def packed_pairs_from_idx(part: dict, field: str = "match") -> np.ndarray:
@@ -269,6 +304,12 @@ def packed_pairs_from_band(part: dict, field: str = "match") -> np.ndarray:
     a = eid[ss, iis]
     b = eid[ss, iis + ds + 1]       # in-bounds: masks force i + d < M
     return unique_packed(pack_pairs(a, b))
+
+
+def pairs_from_band(part: dict, field: str = "match") -> Set[Pair]:
+    """Band -> Python pair set: the public surface of
+    ``packed_pairs_from_band`` (the collection hot path)."""
+    return set(packed_to_frozenset(packed_pairs_from_band(part, field)))
 
 
 def compute_metrics(blocked: FrozenSet[Pair], oracle: Set[Pair],

@@ -1,20 +1,30 @@
-"""Partition planning: key profile -> ShardPlan (port of the legacy path of
-``repro.balance.planners``).
+"""Partition planners: key profile -> ShardPlan (port of
+``repro.balance.planners``; host numpy, as in the reference).
 
-The legacy boundary derivations (``balanced`` | ``range`` | ``sample``)
-keep their exact historical boundaries and capacity semantics (the
-shuffle capacity comes from ``cfg.cap_factor``; a legacy plan carries no
-``cap_link``), and gain planned-load telemetry from the key profile.
+A planner decides where the shard boundaries fall, whether an oversized
+key block is split across shards at rank granularity, and how large the
+padded per-shard shuffle capacity (``cap_link``) must be so nothing
+overflows.  Planners registered here (``ERConfig.partitioner``):
 
-The profile-backed planners of the reference (``uniform``, ``blocksplit``,
-``pairrange``) are not ported yet: naming one raises NotImplementedError
-(ROADMAP M6).  ``ShardPlan`` keeps every field, so rank-granular plans
-built elsewhere still route through ``dest``.
+  uniform     even KEY-SPACE split over the observed key extent
+  blocksplit  greedy walk over key blocks balancing COMPARISON counts;
+              boundaries snap to block edges, and only a block larger
+              than a shard's fair share is split mid-block
+  pairrange   exact equal division of the global SN pair space: boundary
+              ranks at comparison-count quantiles (the inverse cost model)
+
+Legacy names (balanced | range | sample) keep their exact historical
+boundaries and capacity semantics (cap from ``cfg.cap_factor``).
+
+Rank-granular plans carry a per-entity ``dest`` that overrides the
+key->shard partition function inside ``srp.srp_shard`` (monotone in
+sorted rank, so halo exchange and boundary windows hold unchanged), and
+``cap_link`` feeds the variants' padded capacities.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
 
@@ -23,8 +33,6 @@ from repro_torch.core import partition as P
 from repro_torch.core import window as W
 
 LEGACY_PARTITIONERS = ("balanced", "range", "sample")
-# the reference's planner registry names, not ported yet (ROADMAP M6)
-PROFILE_PLANNERS = ("uniform", "blocksplit", "pairrange")
 
 
 @dataclass(frozen=True)
@@ -114,11 +122,133 @@ def as_plan(bounds_or_plan) -> ShardPlan:
                      num_shards=int(b.shape[0]) + 1, bounds=b)
 
 
-def _unported(partitioner: str):
-    return NotImplementedError(
-        f"partitioner {partitioner!r} is not ported to repro_torch yet "
-        f"(ROADMAP M6: planning); use one of {LEGACY_PARTITIONERS}")
+# -- planner registry ---------------------------------------------------------------
 
+_PLANNERS: Dict[str, Type["Partitioner"]] = {}
+
+
+def register_partitioner(name: str):
+    """Class decorator: ``@register_partitioner("blocksplit")``."""
+    def deco(cls):
+        cls.name = name
+        _PLANNERS[name] = cls
+        return cls
+    return deco
+
+
+def get_partitioner(name: str) -> "Partitioner":
+    """Instantiate the registered partition planner named ``name`` (raises
+    ``ValueError`` listing registry + legacy names when unknown)."""
+    try:
+        return _PLANNERS[name]()
+    except KeyError:
+        raise ValueError(
+            f"unknown partition planner {name!r}; registered: "
+            f"{available_partitioners()} (legacy: {LEGACY_PARTITIONERS})"
+        ) from None
+
+
+def available_partitioners() -> Tuple[str, ...]:
+    """Sorted names of every registered partition planner (the legacy
+    names live outside the registry)."""
+    return tuple(sorted(_PLANNERS))
+
+
+class Partitioner:
+    """One boundary-selection strategy.  ``boundary_ranks(profile, r)``
+    returns (rank_bounds (r-1,) int64, key_bounds (r-1,) int64 | None):
+    nondecreasing boundary ranks in the global sorted order, plus — when
+    every boundary sits on a key-block edge — the equivalent inclusive key
+    upper bounds.  ``key_bounds=None`` marks a rank-granular plan."""
+
+    name = "?"
+
+    def boundary_ranks(self, profile: KeyProfile,
+                       r: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Choose the r−1 shard boundaries for ``profile``."""
+        raise NotImplementedError
+
+
+@register_partitioner("uniform")
+class UniformPartitioner(Partitioner):
+    """Even key-space ranges over the observed key extent (paper Even8/10):
+    the baseline skew is measured against."""
+
+    def boundary_ranks(self, profile, r):
+        lo, hi = int(profile.uniq[0]), int(profile.uniq[-1])
+        span = hi - lo + 1
+        key_bounds = lo + (np.arange(1, r, dtype=np.int64) * span) // r
+        return profile.rank_after_key(key_bounds), key_bounds
+
+
+@register_partitioner("blocksplit")
+class BlockSplitPartitioner(Partitioner):
+    """Greedy block walk balancing comparison counts (Kolb's BlockSplit,
+    SN-adapted).  For each boundary the remaining comparison mass is divided
+    by the remaining shards; the boundary snaps to the nearer edge of the
+    block that straddles the goal — unless that block alone exceeds the
+    fair share, in which case it is split mid-block at the exact rank."""
+
+    def boundary_ranks(self, profile, r):
+        n, w = profile.n, profile.window
+        cum_n = profile.cum_entities
+        cum_c = profile.cum_comparisons
+        total = profile.total_comparisons
+        edges = []
+        any_split = False
+        rank0 = 0
+        for made in range(r - 1):
+            done = int(W.rank_prefix_comparisons(rank0, w))
+            target = (total - done) / (r - made)
+            goal = done + target
+            j = int(np.searchsorted(cum_c, goal, side="left"))
+            if j >= profile.n_blocks or rank0 >= n - 1:
+                edges.append(n)                   # mass exhausted: empty tail
+                continue
+            start_rank = int(cum_n[j - 1]) if j > 0 else 0
+            end_rank = int(cum_n[j])
+            block_c = int(cum_c[j]) - (int(cum_c[j - 1]) if j > 0 else 0)
+            if block_c > target:
+                # oversized block: split it at the exact pair-space rank
+                e = W.rank_for_prefix_comparisons(goal, w)
+                e = int(np.clip(e, rank0 + 1, n))
+                if start_rank < e < end_rank:
+                    any_split = True
+            else:
+                # snap to the nearer block edge (never re-emit a past edge)
+                lo_c = int(W.rank_prefix_comparisons(start_rank, w))
+                hi_c = int(cum_c[j])
+                if start_rank > rank0 and goal - lo_c <= hi_c - goal:
+                    e = start_rank
+                else:
+                    e = end_rank
+            edges.append(min(e, n))
+            rank0 = edges[-1]
+        edges = np.asarray(edges, np.int64)
+        if any_split:
+            return edges, None
+        # every boundary on a block edge: the key of rank e-1 closes shard s
+        return edges, np.asarray(
+            profile.key_at_rank(np.maximum(edges - 1, 0)), np.int64)
+
+
+@register_partitioner("pairrange")
+class PairRangePartitioner(Partitioner):
+    """Equal contiguous ranges of the global SN pair space (Kolb's
+    PairRange, SN-adapted): boundary ranks at exact comparison-count
+    quantiles; always rank-granular."""
+
+    def boundary_ranks(self, profile, r):
+        n, w = profile.n, profile.window
+        total = profile.total_comparisons
+        edges = [W.rank_for_prefix_comparisons(total * (s + 1) / r, w)
+                 for s in range(r - 1)]
+        edges = np.minimum(np.maximum.accumulate(np.asarray(edges, np.int64)),
+                           n)
+        return edges, None
+
+
+# -- plan construction --------------------------------------------------------------
 
 def _legacy_bounds(keys: np.ndarray, partitioner: str, r: int) -> np.ndarray:
     """Exact historical boundary behavior of the legacy partitioners."""
@@ -130,8 +260,6 @@ def _legacy_bounds(keys: np.ndarray, partitioner: str, r: int) -> np.ndarray:
         import torch
         return np.asarray(P.sample_partition(
             torch.as_tensor(np.sort(keys)), r))
-    if partitioner in PROFILE_PLANNERS:
-        raise _unported(partitioner)
     raise ValueError(f"unknown partitioner {partitioner!r}")
 
 
@@ -207,38 +335,81 @@ def validate_plan(plan: ShardPlan, cfg, n_valid: int) -> None:
 
 def plan_from_profile(profile: KeyProfile, partitioner: str,
                       r: int) -> ShardPlan:
-    """Plan shard boundaries from a ``KeyProfile`` alone (legacy names: the
-    boundaries are rebuilt from the profile's sorted key multiset — exact,
-    since the legacy derivations only read sorted keys)."""
+    """Plan shard boundaries from a ``KeyProfile`` alone, for the planner
+    registry and the legacy names (their boundaries rebuilt from the
+    profile's sorted key multiset — exact, since the legacy derivations
+    only read sorted keys).  The plan carries boundaries, planned stats and
+    ``rank_granular``, but neither ``dest`` nor ``cap_link`` (those need
+    the entity layout; ``plan_shards`` attaches them)."""
     if profile.n == 0:
         bounds = np.asarray(P.manual_partition(range(1, r)) if r > 1
                             else P.manual_partition([]))
         return ShardPlan(partitioner=partitioner, num_shards=r,
                          bounds=bounds.astype(np.int32))
-    if partitioner not in LEGACY_PARTITIONERS:
-        if partitioner in PROFILE_PLANNERS:
-            raise _unported(partitioner)
-        raise ValueError(f"unknown partitioner {partitioner!r}")
-    sorted_keys = np.repeat(profile.uniq, profile.counts)
-    bounds = _legacy_bounds(sorted_keys, partitioner, r).astype(np.int32)
-    rank_bounds = profile.rank_after_key(bounds)
+    if partitioner in LEGACY_PARTITIONERS:
+        sorted_keys = np.repeat(profile.uniq, profile.counts)
+        bounds = _legacy_bounds(sorted_keys, partitioner, r) \
+            .astype(np.int32)
+        rank_bounds = profile.rank_after_key(bounds)
+        load, comp, halo = _plan_stats(profile, rank_bounds)
+        return ShardPlan(partitioner=partitioner, num_shards=r,
+                         bounds=bounds, rank_bounds=rank_bounds,
+                         planned_load=load, planned_comparisons=comp,
+                         halo=halo)
+    planner = get_partitioner(partitioner)
+    rank_bounds, key_bounds = planner.boundary_ranks(profile, r)
+    rank_bounds = np.asarray(rank_bounds, np.int64)
     load, comp, halo = _plan_stats(profile, rank_bounds)
+    if key_bounds is None:
+        # key-view bounds are telemetry only: the key of the last entity of
+        # each shard (routing happens by rank)
+        bounds = np.asarray(profile.key_at_rank(
+            np.maximum(rank_bounds - 1, 0)), np.int64).astype(np.int32)
+    else:
+        bounds = np.asarray(key_bounds, np.int64).astype(np.int32)
     return ShardPlan(partitioner=partitioner, num_shards=r, bounds=bounds,
                      rank_bounds=rank_bounds, planned_load=load,
-                     planned_comparisons=comp, halo=halo)
+                     planned_comparisons=comp, halo=halo,
+                     rank_granular=key_bounds is None)
 
 
 def plan_shards(ents: dict, cfg, r: int) -> ShardPlan:
-    """Profile ``ents`` and build the ShardPlan for ``cfg.partitioner``
-    (legacy names only; the profile-backed planners raise, ROADMAP M6)."""
-    if cfg.partitioner in PROFILE_PLANNERS:
-        raise _unported(cfg.partitioner)
+    """Profile ``ents`` (a port entity dict on any device) and build the
+    ShardPlan for ``cfg.partitioner``.  Legacy partitioners keep their
+    historical boundaries and capacity semantics; the registry planners
+    also emit exact planned capacities and, where a boundary falls inside
+    a key block, per-entity routing (``dest``)."""
     valid = ents["valid"].cpu().numpy()
-    keys = ents["key"].cpu().numpy()[valid]
+    keys_all = ents["key"].cpu().numpy()
+    keys = keys_all[valid]
     if keys.size == 0:
         return plan_from_profile(KeyProfile.empty(cfg.window),
                                  cfg.partitioner, r)
     profile = profile_keys(keys, window=cfg.window)
     plan = plan_from_profile(profile, cfg.partitioner, r)
+
+    if cfg.partitioner in LEGACY_PARTITIONERS:
+        validate_plan(plan, cfg, int(keys.shape[0]))
+        return plan
+
+    dest = None
+    if plan.rank_granular:
+        # route by explicit per-entity destination: sorted (key, eid) rank
+        # against the plan's boundary ranks
+        eids = ents["eid"].cpu().numpy()[valid]
+        order = np.lexsort((eids, keys))
+        ranks = np.empty(keys.shape[0], np.int64)
+        ranks[order] = np.arange(keys.shape[0])
+        assign_valid = np.searchsorted(plan.rank_bounds, ranks,
+                                       side="right").astype(np.int32)
+        dest = np.zeros(keys_all.shape[0], np.int32)
+        dest[np.flatnonzero(valid)] = assign_valid
+    else:
+        assign_valid = np.searchsorted(plan.bounds, keys,
+                                       side="left").astype(np.int32)
+
+    cap_link = _planned_cap_link(assign_valid, np.flatnonzero(valid),
+                                 keys_all.shape[0], r, cfg.window)
+    plan = replace(plan, dest=dest, cap_link=cap_link)
     validate_plan(plan, cfg, int(keys.shape[0]))
     return plan

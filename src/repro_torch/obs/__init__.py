@@ -22,6 +22,8 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
-def span(name: str, **attrs) -> _NoopSpan:
-    """A disabled span: a context manager that records nothing."""
+def span(name: str, /, **attrs) -> _NoopSpan:
+    """A disabled span: a context manager that records nothing (``name``
+    is positional-only, as in the reference, so ``name`` may also be an
+    attribute)."""
     return NOOP_SPAN

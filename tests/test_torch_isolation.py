@@ -23,7 +23,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.kernels.ref\n"
-        "import repro_torch.balance\n"
+        "import repro_torch.balance, repro_torch.quality, repro_torch.data\n"
+        "import repro_torch.core.keys\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")

@@ -133,11 +133,8 @@ def test_legacy_partitioners_equal_reference(ents, partitioner):
 
 
 UNPORTED = [
-    ("passes", dict(passes=(TA.SortKeySpec(),)), "M7"),
-    ("adaptive", dict(window_policy="adaptive", window_max=8), "M7"),
     ("trace", dict(trace=True), "M10"),
     ("shard_map", dict(runner="shard_map"), "M11"),
-    ("pairrange", dict(partitioner="pairrange"), "M6"),
 ]
 
 
