@@ -50,11 +50,22 @@ Run from the root of a checkout.  Phases, one JSON line each:
               (K1 at window 11), and two-pass blocking (key, alt) at w=8;
               PC / PQ / RR / F against the gold pairs, the adaptive and
               multi-pass blocked sets against their host oracles
+ 10. stream   out-of-core streaming (``stream.resolve_stream``) of phase
+              7's corpus and config, arriving as 8 host chunks of 175,000
+              rows and resolved in 4 native chunks of 350,000 (the 1:4
+              chunk-to-corpus ratio of BENCH_stream.json): the blocked and
+              matched unions equal phase 7's sets, zero overflow, the
+              chunk sorts and shard programs on the card; then the same
+              call checkpointed and killed between chunk 2's spool and its
+              commit (``FaultPlan``), resumed with ``api.resume`` to the
+              same sets; seconds of ingest, sort runs, merge, chunk
+              resolves, dedup and frozensets, spooled bytes, peak memory
 
-Phases 4, 5 and 7-9 each set every launch count to 0 just before they
+Phases 4, 5 and 7-10 each set every launch count to 0 just before they
 drive their path and read the counts just after; each raises if a kernel
-of its path was not launched, and phases 8 and 9 if K1 was not launched
-on every resolve (every pass of a multi-pass one).  Then come the kernel
+of its path was not launched, phases 8 and 9 if K1 was not launched on
+every resolve (every pass of a multi-pass one), and phase 10 if it was
+not launched on every chunk it resolved.  Then come the kernel
 table ``{"kernels": [...]}``,
 the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
 phase raises on failure, so the script exits non-zero and prints no result
@@ -94,6 +105,8 @@ ZIPF = dict(n_clusters=256, exponent=1.0, dup_frac=0.2)
 # BENCH_recall.json's labeled corpus and windows, at the paper's scale
 RECALL = dict(max_cluster=12, typo_rate=0.1)
 W_BASE, W_FIXED, W_MAX, PRUNE = 4, 8, 12, 0.55
+# phase stream: input chunks in generator order, native chunk width
+STREAM_INPUT, STREAM_CHUNK = 175_000, 350_000
 KERNEL_TOL = 1e-5           # tests/test_kernels.py's fused-band tolerance
 # tests/test_kernels.py's (rtol, atol) for K2-K4, held at the edge cases
 TOL = {"banded_sim/f32": (1e-5, 1e-4), "banded_sim/bf16": (2e-2, 2e-1),
@@ -1037,21 +1050,23 @@ def _planned_run(ents, cfg, label):
     return rec, blocked, matched
 
 
-def _k1_at(rows, label):
-    """K1 at one planned shard shape (R shards of ``rows`` rows, window
-    W-1): held against its plain version and timed."""
+def _k1_at(rows, label, shards=R, f=32, words=8, window=W - 1):
+    """K1 at one shard shape the path gave it (``shards`` shards of
+    ``rows`` rows, ``f`` features, ``words`` signature words): held
+    against its plain version and timed."""
     import torch
     from repro_torch.kernels import ops
-    feat, sig = _band_inputs(R, rows, 32, 8, 3)
-    err = _check_band(feat, sig, W - 1, 0.5, 0.5, label)
-    ms = cuda_ms(lambda: ops.fused_cheap_band(feat, sig, window=W - 1,
+    feat, sig = _band_inputs(shards, rows, f, words, 3)
+    err = _check_band(feat, sig, window, 0.5, 0.5, label)
+    ms = cuda_ms(lambda: ops.fused_cheap_band(feat, sig, window=window,
                                               w_cos=0.5, w_jac=0.5), reps=50)
-    n_bytes = feat.numel() * 4 + sig.numel() * 4 + R * rows * (W - 1) * 4
+    n_bytes = (feat.numel() + sig.numel() + shards * rows * window) * 4
     del feat, sig
     torch.cuda.empty_cache()
-    return {"rows": rows, "ms": ms, "max_abs_err": err,
-            **_bound(n_bytes, _band_pairs(R, rows, W - 1) * (2 * 32 + 6 * 8),
-                     F32_OPS_PER_S)}
+    return {"shards": shards, "rows": rows, "window": window, "ms": ms,
+            "max_abs_err": err,
+            **_bound(n_bytes, _band_pairs(shards, rows, window)
+                     * (2 * f + 6 * words), F32_OPS_PER_S)}
 
 
 def _assert_equal(label, got, want):
@@ -1237,6 +1252,242 @@ def phase_quality():
     return rec
 
 
+class _StreamStages:
+    """Seconds of the stream's stages, read by wrapping the functions the
+    resolver calls (restored on exit): ingest, sort runs, merge (the time
+    inside the merged stream's ``next``), chunk resolves (the runner's
+    ``resolve_packed``), and the union's dedup and frozensets (outside
+    the chunk resolves).  Also records, per chunk resolve, the K1
+    launches and the device of its entities, the shapes K1 was given
+    (S, M, F, signature words, window), and the device of every chunk
+    sort."""
+
+    def __init__(self):
+        from repro_torch.api import results as RES
+        from repro_torch.api import runners as RN
+        from repro_torch.core import entities as E
+        from repro_torch.kernels import ops
+        from repro_torch.stream import resolver as SR
+        self.targets = [(SR, "_ingest"), (SR, "_ingest_checkpointed"),
+                        (SR, "_sorted_runs"), (SR, "rechunk"),
+                        (RN.VmapRunner, "resolve_packed"),
+                        (RES, "unique_packed"), (RES, "packed_to_frozenset"),
+                        (E, "sort_chunk"), (ops, "fused_cheap_band")]
+        self.seconds = dict.fromkeys(("ingest", "sort_runs", "merge",
+                                      "chunk_resolves", "dedup",
+                                      "frozensets"), 0.0)
+        self.chunk_k1, self.chunk_devices, self.sort_devices = [], [], []
+        self.k1_shapes = set()
+        self._inside_chunk = False
+
+    def _timed(self, stage, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[stage] += time.perf_counter() - t0
+        return call
+
+    def _host_only(self, stage, fn):
+        timed = self._timed(stage, fn)
+        return lambda *a, **kw: fn(*a, **kw) if self._inside_chunk \
+            else timed(*a, **kw)
+
+    def _merge(self, fn):
+        def rechunk(blocks, size):
+            it = fn(blocks, size)
+            while True:
+                t0 = time.perf_counter()
+                native = next(it, None)
+                self.seconds["merge"] += time.perf_counter() - t0
+                if native is None:
+                    return
+                yield native
+        return rechunk
+
+    def _chunk(self, fn):
+        def resolve_packed(runner, ents, plan, cfg):
+            before = _k1_launches()
+            self.chunk_devices.append(ents["key"].device.type)
+            self._inside_chunk = True
+            try:
+                return self._timed("chunk_resolves", fn)(runner, ents,
+                                                         plan, cfg)
+            finally:
+                self._inside_chunk = False
+                self.chunk_k1.append(_k1_launches() - before)
+        return resolve_packed
+
+    def _sort(self, fn):
+        def sort_chunk(ents, key=None):
+            self.sort_devices.append(ents["key"].device.type)
+            return fn(ents, key=key)
+        return sort_chunk
+
+    def _k1(self, fn):
+        def fused_cheap_band(feat, sig, *, window, **kw):
+            lead = (1,) * (3 - feat.dim())   # an unbatched call: 1 shard
+            self.k1_shapes.add((*lead, *feat.shape, sig.shape[-1], window))
+            return fn(feat, sig, window=window, **kw)
+        return fused_cheap_band
+
+    def __enter__(self):
+        self.saved = [getattr(obj, name) for obj, name in self.targets]
+        ingest, ingest_ck, runs, rechunk, chunk, uniq, fsets, sort, k1 = \
+            self.saved
+        wrapped = [self._timed("ingest", ingest),
+                   self._timed("ingest", ingest_ck),
+                   self._timed("sort_runs", runs), self._merge(rechunk),
+                   self._chunk(chunk), self._host_only("dedup", uniq),
+                   self._host_only("frozensets", fsets), self._sort(sort),
+                   self._k1(k1)]
+        for (obj, name), fn in zip(self.targets, wrapped):
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in zip(self.targets, self.saved):
+            setattr(obj, name, fn)
+        return False
+
+    def check(self, label, chunks, sorts):
+        """Raise unless ``chunks`` chunk resolves each launched K1 on the
+        card and ``sorts`` chunk sorts ran on the card."""
+        if len(self.chunk_k1) != chunks or min(self.chunk_k1) < 1:
+            raise AssertionError(f"{label}: K1 launches per chunk resolve "
+                                 f"{self.chunk_k1}, {chunks} chunks")
+        if self.chunk_devices != ["cuda"] * chunks:
+            raise AssertionError(f"{label}: shard programs on "
+                                 f"{self.chunk_devices}")
+        if self.sort_devices != ["cuda"] * sorts:
+            raise AssertionError(f"{label}: chunk sorts on "
+                                 f"{self.sort_devices}")
+
+    def record(self):
+        return {"seconds": self.seconds, "k1_per_chunk": self.chunk_k1,
+                "k1_shapes": sorted(self.k1_shapes)}
+
+
+def _stream_gates(label, res, main_sets, n_chunks):
+    """The stream's union against phase main's sets, zero overflow, and its
+    chunk accounting: 8 runs, (chunks - 1) seams of w - 1 carried rows,
+    no degenerate chunk, a chunk's device bytes below the corpus's."""
+    _zero_overflow(res, label)
+    blocked, matched = _packed_sets(res)
+    _assert_equal(f"{label} blocked vs main", blocked, main_sets[0])
+    _assert_equal(f"{label} matched vs main", matched, main_sets[1])
+    st = res.stream
+    want = {"chunks": n_chunks, "runs": N_FULL // STREAM_INPUT,
+            "carry_entities": (n_chunks - 1) * (W - 1),
+            "degenerate_chunks": 0, "entities": N_FULL}
+    got = {k: getattr(st, k) for k in want}
+    if got != want or not st.chunk_device_bytes < st.corpus_bytes:
+        raise AssertionError(f"{label}: stream stats {st}, want {want}")
+
+
+def phase_stream(main_rec, main_sets):
+    """M8 at full size: phase main's corpus, streamed in host chunks and
+    resolved chunk by chunk with the seam carry; then the same run
+    checkpointed, killed mid-commit and resumed."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import api, stream
+    from repro_torch.core import entities as E
+    from repro_torch.kernels import ops
+
+    host = E.synth_arrays(np.random.default_rng(0), N_FULL, n_keys=N_KEYS,
+                          dup_frac=0.2, text_len=16)
+    chunks = lambda: (E.host_take(host, slice(s, s + STREAM_INPUT))
+                      for s in range(0, N_FULL, STREAM_INPUT))
+    cfg = api.ERConfig(**_cfg_kw(variant="repsn", runner="vmap",
+                                 partitioner="balanced",
+                                 band_engine="pallas"))
+    n_chunks = -(-N_FULL // STREAM_CHUNK)
+    n_runs = N_FULL // STREAM_INPUT
+    run = lambda **kw: stream.resolve_stream(
+        chunks(), cfg, chunk_size=STREAM_CHUNK, device="cuda", **kw)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _StreamStages() as stages:
+        res, stream_s = wall(run)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stages.check("stream", n_chunks, n_runs)
+    _stream_gates("stream", res, main_sets, n_chunks)
+    stats = dataclasses.asdict(res.stream)
+    resilience = res.resilience._asdict()
+    del res
+
+    ckpt = ROOT / "build" / "stream_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kill = api.FaultPlan(crash_before_commit=2)
+    ops.reset_launch_counts()
+    with _StreamStages() as killed_stages:
+        t0 = time.perf_counter()
+        try:
+            run(checkpoint_dir=str(ckpt), fault_plan=kill)
+        except api.InjectedFault:
+            killed_s = time.perf_counter() - t0
+        else:
+            raise AssertionError("stream checkpoint: no InjectedFault")
+    killed_stages.check("stream killed", kill.crash_before_commit + 1,
+                        n_runs)
+    with _StreamStages() as resume_stages:
+        resumed, resume_s = wall(lambda: api.resume(str(ckpt), cfg=cfg,
+                                                    device="cuda"))
+    torch.cuda.synchronize()
+    ckpt_launches = ops.launch_counts()
+    # the resume redoes the torn chunk and the ones after it; its sorted
+    # runs were committed before the kill
+    resume_stages.check("stream resumed",
+                        n_chunks - kill.crash_before_commit, 0)
+    _stream_gates("stream resumed", resumed, main_sets, n_chunks)
+    spooled = resumed.stream.spooled_bytes
+    resumed_stats = dataclasses.asdict(resumed.stream)
+    del resumed
+    shutil.rmtree(ckpt)
+    if {k: v for k, v in resumed_stats.items() if k != "spooled_bytes"} \
+            != {k: v for k, v in stats.items() if k != "spooled_bytes"}:
+        raise AssertionError(f"stream resumed stats {resumed_stats} vs "
+                             f"{stats}")
+
+    # K1 at each shard shape the three runs gave it (after the counts
+    # were read)
+    k1_shapes = stages.k1_shapes | killed_stages.k1_shapes \
+        | resume_stages.k1_shapes
+    if not k1_shapes:
+        raise AssertionError("stream: no K1 shape recorded")
+    k1 = [_k1_at(m, f"stream chunk shape {(s, m, f, words, window)}",
+                 shards=s, f=f, words=words, window=window)
+          for s, m, f, words, window in sorted(k1_shapes)]
+
+    rec = {"phase": "stream", "n": N_FULL, "input_chunk": STREAM_INPUT,
+           "chunk_size": STREAM_CHUNK, "w": W, "r": R, "hops": HOPS,
+           "variant": "repsn", "band_engine": "pallas", "emit": "pairs",
+           "reduced": [], "blocked": int(main_sets[0].size),
+           "matched": int(main_sets[1].size), "stream_stats": stats,
+           "resilience": resilience, "launches": launches,
+           "stream_s": stream_s, "main_steady_s": main_rec["steady_s"],
+           "stages": stages.record(), "k1_at_chunk_shapes": k1,
+           "max_memory_allocated": peak,
+           "main_max_memory_allocated": main_rec["max_memory_allocated"],
+           "checkpoint": {"kill": "crash_before_commit=2",
+                          "killed_s": killed_s, "resume_s": resume_s,
+                          "spooled_bytes": spooled,
+                          "launches": ckpt_launches,
+                          "killed_stages": killed_stages.record(),
+                          "resume_stages": resume_stages.record()}}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     # the flex_attention yardstick compiles; keep its caches in build/
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -1266,14 +1517,17 @@ def main() -> int:
     phase_parity()
     main_rec, main_ents, main_sets = phase_main()
     planned = phase_planned(main_rec, main_ents, main_sets)
-    del main_ents, main_sets
+    del main_ents
     quality = phase_quality()
+    streamed = phase_stream(main_rec, main_sets)
+    del main_sets
     # launches on each kernel's path: K1 on the resolve paths (main,
-    # planned, quality), K2 and K3 on the entry point's bands, K4 on its
-    # attention
+    # planned, quality, stream and its checkpointed run), K2 and K3 on the
+    # entry point's bands, K4 on its attention
     launches = {"fused_band": sum(rec[k]["fused_band"] for rec, k in (
                     (main_rec, "kernel_launches"), (planned, "launches"),
-                    (quality, "launches"))),
+                    (quality, "launches"), (streamed, "launches"),
+                    (streamed["checkpoint"], "launches"))),
                 "banded_sim": bands["launches"]["banded_sim"],
                 "jaccard_band": bands["launches"]["jaccard_band"],
                 "local_attn": attention["launches"]["local_attn"]}

@@ -10,16 +10,23 @@ counterpart of the same name:
   kernels/     hand-written Hopper kernels (``kernels/csrc``) behind
                PyTorch wrappers, each with its plain-PyTorch version
   api/         ``ERConfig``, variants, runners, ``resolve`` / ``link``
-  balance/     key profile, legacy shard planners, capacity sizing
-  resilience/  the overflow-recovery ladder
-  obs/         a no-op span seam (tracing is not ported yet)
+  balance/     key profile, shard planners, capacity sizing
+  stream/      out-of-core streaming: chunk spool, external sort, the
+               chunked resolve with its seam carry
+  resilience/  the overflow-recovery ladder, checkpointed kill/resume,
+               fault injection
+  data/        corpus generators and the dedup stage
+  quality/     adaptive windows, recall metrics against gold pairs
+  obs/, perf/  no-op seams for tracing (M10) and the executable cache
+               (M11)
 
 Differences of form, not of result: the shard axis the reference vmaps is
 an explicit leading dim ``r`` on every tensor of the shard program, the
 named-axis collectives become ops over that dim, and bit-packed signatures
 travel as int32 bit views of the reference's uint32 words.
 
-Entry points (``api.resolve``, ``api.link``, ``api.VmapRunner``) run on
+Entry points (``api.resolve``, ``api.link``, ``api.resume``,
+``stream.resolve_stream``, ``stream.link_stream``, ``api.VmapRunner``) run on
 the CUDA device unless the caller passes ``device="cpu"``; without a card
 they raise instead of falling back.  This package imports neither ``jax``
 nor ``repro``.

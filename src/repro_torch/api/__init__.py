@@ -9,11 +9,12 @@
     res.matches             # frozenset of matcher-accepted pairs
 
 Runs on the CUDA card unless ``device="cpu"`` is passed.  Under
-``ERConfig(passes=...)`` ``resolve`` returns a ``MultiPassResult``.
+``ERConfig(passes=...)`` ``resolve`` returns a ``MultiPassResult``;
+``resume`` continues a checkpointed ``repro_torch.stream`` run.
 """
 from repro_torch.api.config import ERConfig, SortKeySpec
 from repro_torch.api.facade import default_bounds, link, make_runner, \
-    resolve
+    resolve, resume
 from repro_torch.api.linkage import sequential_link_pairs, tag_sources
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
                                      ERMetrics, ERResult, MultiPassResult,
@@ -35,9 +36,24 @@ from repro_torch.balance import (KeyProfile, ShardPlan,
 from repro_torch.core.window import (available_band_engines,
                                      get_band_engine, register_band_engine)
 
+_RESILIENCE_TYPES = ("StreamCheckpoint", "FaultPlan", "InjectedFault",
+                     "CapacityOverflowError")
+
+
+def __getattr__(name):
+    # the resilience types resolve lazily (PEP 562): the resilience package
+    # reaches repro_torch.api submodules, so an eager import here would be
+    # a cycle
+    if name in _RESILIENCE_TYPES:
+        import repro_torch.resilience as _resilience
+        return getattr(_resilience, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
-    "ERConfig", "SortKeySpec", "resolve", "link", "make_runner",
-    "default_bounds", "BlockingResult", "ERResult", "ERMetrics",
+    "ERConfig", "SortKeySpec", "resolve", "link", "resume", "make_runner",
+    "default_bounds", "StreamCheckpoint", "FaultPlan", "InjectedFault",
+    "CapacityOverflowError", "BlockingResult", "ERResult", "ERMetrics",
     "BalanceMetrics", "PerfStats", "ResilienceStats", "MultiPassResult",
     "pairs_from_band", "packed_pairs_from_band", "packed_pairs_from_idx",
     "packed_pairs_from_part", "pack_pairs", "unpack_pairs",

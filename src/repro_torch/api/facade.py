@@ -10,7 +10,8 @@ execute): a legacy boundary derivation (balanced | range | sample) or a
 profile-backed planner (uniform | blocksplit | pairrange); explicit
 ``bounds`` (a raw array or a ShardPlan) always win.  ``cfg.passes`` runs
 multi-pass blocking (a ``MultiPassResult``), ``window_policy="adaptive"``
-per-entity windows.  ``device=None`` runs on the CUDA card and raises
+per-entity windows.  ``resume`` continues a checkpointed stream
+(``repro_torch.stream``).  ``device=None`` runs on the CUDA card and raises
 without one.
 """
 from __future__ import annotations
@@ -328,3 +329,22 @@ def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, device=None):
         res = _replace(res, passes=tuple(_untag(r, offset)
                                          for r in res.passes))
     return _untag(res, offset)
+
+
+def resume(checkpoint_dir: str, *, chunks=None, cfg: ERConfig = None,
+           mesh=None, axis: str = "data", device=None):
+    """Resume a checkpointed ``stream.resolve_stream(checkpoint_dir=...)``
+    run killed mid-flight (DESIGN.md §11): continues at the last committed
+    chunk and returns the same ``StreamResult`` — bit-identical pair union
+    — an uninterrupted run would have produced.  Checkpoints the
+    reference package wrote resume here too.
+
+    The config is rebuilt from the checkpoint manifest; pass ``cfg`` only
+    when the original run used a non-default matcher (it is validated
+    against the stored fingerprint).  ``chunks`` re-supplies the original
+    deterministic chunk iterator and is required only when the run died
+    during ingest.  ``mesh`` must be None (M11); ``device`` as in
+    ``resolve``."""
+    from repro_torch.resilience.checkpoint import resume_stream
+    return resume_stream(checkpoint_dir, chunks=chunks, cfg=cfg, mesh=mesh,
+                         axis=axis, device=device)

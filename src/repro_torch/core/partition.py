@@ -1,5 +1,6 @@
-"""Partition functions p: key -> reducer index (paper §4.1) — port of the
-parts of ``repro.core.partition`` the legacy planners use.
+"""Partition functions p: key -> reducer index (paper §4.1) — port of
+``repro.core.partition``, with the partition-size statistics (sizes, Gini)
+of the corpus-dedup stage.
 
 A partitioner is a monotonically non-decreasing map from blocking keys to
 shard ids, represented by r-1 int32 upper boundaries: shard i receives
@@ -80,3 +81,40 @@ def balanced_partition(keys: np.ndarray, r: int) -> torch.Tensor:
     while len(edges) < r - 1:               # dedup may shrink; repad
         edges.append(edges[-1] + 1)
     return torch.as_tensor(np.asarray(edges[:r - 1], np.int32).reshape(-1))
+
+
+def partition_sizes(bounds, keys: torch.Tensor, valid=None,
+                    r: int = None) -> torch.Tensor:
+    """(r,) int32 count of (valid) keys per partition under ``bounds``."""
+    keys = torch.as_tensor(keys)
+    r = r if r is not None else int(torch.as_tensor(bounds).shape[0]) + 1
+    sid = shard_of(bounds, keys).to(torch.int64)
+    w = torch.ones_like(sid, dtype=torch.int32) if valid is None \
+        else torch.as_tensor(valid, device=keys.device).to(torch.int32)
+    return torch.zeros(r, dtype=torch.int32, device=keys.device) \
+        .index_add_(0, sid, w)
+
+
+def gini(sizes) -> float:
+    """Gini coefficient of partition sizes (paper §5.3):
+    g = 2*sum(i*y_i)/(n*sum(y_i)) - (n+1)/n with y sorted ascending."""
+    sizes = sizes.cpu().numpy() if torch.is_tensor(sizes) else sizes
+    y = np.sort(np.asarray(sizes).astype(np.float64))
+    n = len(y)
+    tot = y.sum()
+    if tot == 0 or n == 0:
+        return 0.0
+    i = np.arange(1, n + 1)
+    return float(2.0 * (i * y).sum() / (n * tot) - (n + 1) / n)
+
+
+def skewed_partition(key_space: int, r: int, hot_frac: float,
+                     keys) -> torch.Tensor:
+    """Paper's Even8_40..Even8_85: boundaries chosen so that ``hot_frac`` of
+    the entities land in the LAST partition, the rest evenly split."""
+    keys = keys.cpu().numpy() if torch.is_tensor(keys) else keys
+    ks = np.sort(np.asarray(keys))
+    n = len(ks)
+    cut = ks[min(int(n * (1.0 - hot_frac)), n - 1)]
+    inner = np.linspace(0, cut, r, dtype=np.int64)[1:]      # r-1 edges <= cut
+    return torch.as_tensor(inner.astype(np.int32))

@@ -35,6 +35,37 @@ def assert_same_result(ref, port) -> None:
             assert a == b, f"{name}: {a} vs {b}"
 
 
+# StreamStats fields the reference's executable cache fills and the port
+# (no cache until ROADMAP M11) leaves at 0
+STREAM_CACHE_FIELDS = ("steady_chunks", "cache_hits", "cache_misses",
+                       "traces")
+
+
+def assert_same_stream(ref, port) -> None:
+    """A reference and a port ``StreamResult``: the result contract above,
+    every ``StreamStats`` field equal except the four cache fields (0 in
+    the port), equal overflow-recovery stats and metrics, and the same per
+    pass."""
+    import dataclasses
+    assert_same_result(ref, port)
+    for f in dataclasses.fields(port.stream):
+        a, b = getattr(ref.stream, f.name), getattr(port.stream, f.name)
+        if f.name in STREAM_CACHE_FIELDS:
+            assert b == 0, f"{f.name}: {b} (no cache in the port)"
+        else:
+            assert a == b, f"stream.{f.name}: {a} vs {b}"
+    assert tuple(ref.resilience) == tuple(port.resilience)
+    assert (ref.metrics is None) == (port.metrics is None)
+    if ref.metrics is not None:
+        for f in ("reduction_ratio", "pairs_completeness", "oracle_pairs",
+                  "total_comparisons"):
+            assert getattr(ref.metrics, f) == getattr(port.metrics, f), f
+    assert ref.pass_names == port.pass_names
+    assert len(ref.passes) == len(port.passes)
+    for a, b in zip(ref.passes, port.passes):
+        assert_same_stream(a, b)
+
+
 def port_ents(ref_ents, device="cpu"):
     """The reference entity dict as the port's (tensors on ``device``)."""
     from repro_torch.core import entities as TE

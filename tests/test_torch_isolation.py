@@ -24,7 +24,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.kernels.ref\n"
         "import repro_torch.balance, repro_torch.quality, repro_torch.data\n"
-        "import repro_torch.core.keys\n"
+        "import repro_torch.core.keys, repro_torch.stream, repro_torch.perf\n"
+        "import repro_torch.resilience.checkpoint\n"
+        "import repro_torch.resilience.faults\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")

@@ -155,6 +155,36 @@ def test_resolve_on_card_equals_cpu(cuda, variant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["srp", "repsn", "jobsn"])
+def test_stream_kill_resume_on_card_equals_cpu(cuda, tmp_path, variant):
+    """A stream on the card, killed between chunk 1's spool and commit and
+    resumed there, equals the same stream on the CPU, with K1 launched on
+    each chunk the card resolved."""
+    from repro_torch import stream as TS
+    from repro_torch.core.entities import host_take, to_host
+    h = to_host(TE.synth_entities(np.random.default_rng(4), 3000,
+                                  n_keys=300, text_len=16))
+    chunks = lambda: [host_take(h, slice(s, s + 500))
+                      for s in range(0, 3000, 500)]
+    cfg = TA.ERConfig(window=10, num_shards=8, hops=7, variant=variant,
+                      band_engine="pallas", emit="pairs",
+                      matcher=paper_cascade())
+    host = TS.resolve_stream(chunks(), cfg, chunk_size=1000, device="cpu")
+    d = str(tmp_path / "ckpt")
+    ops.reset_launch_counts()
+    with pytest.raises(TA.InjectedFault):
+        TS.resolve_stream(chunks(), cfg, chunk_size=1000, device=cuda,
+                          checkpoint_dir=d,
+                          fault_plan=TA.FaultPlan(crash_before_commit=1))
+    card = TA.resume(d, cfg=cfg, device=cuda)
+    assert ops.launch_counts()["fused_band"] >= 2 + 2
+    assert card.blocking.pairs == host.blocking.pairs
+    assert card.matches == host.matches
+    assert card.blocking.cand_count == host.blocking.cand_count
+    assert card.stream.chunks == 3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("f,words,m,window", [
     (33, 3, 1001, 9), (32, 8, 1000, 7), (32, 8, 700, 256),
     (64, 16, 700, 256), (32, 8, 1001, 9), (64, 16, 999, 9)],
