@@ -34,7 +34,10 @@ Run from the root of a checkout.  Phases, one JSON line each:
               corpus, w=10, r=8, repsn hops=7, vmap runner, balanced
               partitioner, pallas band engine, emit="pairs", the paper's
               cascade, auto caps — blocked pairs, zero overflow, kernel
-              launches, and the matched set equal to the scan engine's
+              launches, and the matched set equal to the scan engine's;
+              one steady resolve traced (``ERConfig.trace``): its sets
+              equal the untraced run's, and its plan, shard-program,
+              collection and frozenset seconds come from its spans
   8. planned  the profile planners at full size: phase 7's corpus and
               config under pairrange and blocksplit (blocked and matched
               sets equal phase 7's), and the skewed Zipfian corpus of
@@ -58,14 +61,29 @@ Run from the root of a checkout.  Phases, one JSON line each:
               chunk sorts and shard programs on the card; then the same
               call checkpointed and killed between chunk 2's spool and its
               commit (``FaultPlan``), resumed with ``api.resume`` to the
-              same sets; seconds of ingest, sort runs, merge, chunk
-              resolves, dedup and frozensets, spooled bytes, peak memory
+              same sets; all three runs traced: seconds of ingest, sort
+              runs, merge, chunk resolves (shard programs, collection),
+              commits and the union from their spans, one shard program
+              in each chunk span, K1 once per shard program and at each
+              shard shape; spooled bytes, peak memory
+ 11. serve    online serving (``api.serve``) on the card: a traced
+              service bootstrapped with 350,000 records of phase 7's
+              generator and config, then 24 micro-batches of 200 inserts
+              with a delete of 50 after every 4th (the reference's
+              serving mix), half of them through the futures API; every
+              result is the served sets' difference, K1 launched by
+              every delta call (one shard_program span each), the served
+              sets equal a fresh resolve of the live corpus, a snapshot
+              restored on the card serves the same sets under the same
+              pair ids; K1 held against its plain version at every delta
+              shape; bootstrap s, p50/p95 ms, inserts/s, peak memory
 
-Phases 4, 5 and 7-10 each set every launch count to 0 just before they
+Phases 4, 5 and 7-11 each set every launch count to 0 just before they
 drive their path and read the counts just after; each raises if a kernel
 of its path was not launched, phases 8 and 9 if K1 was not launched on
-every resolve (every pass of a multi-pass one), and phase 10 if it was
-not launched on every chunk it resolved.  Then come the kernel
+every resolve (every pass of a multi-pass one), phase 10 if it was not
+launched on every chunk it resolved, and phase 11 if it was not launched
+on every delta call.  Then come the kernel
 table ``{"kernels": [...]}``,
 the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
 phase raises on failure, so the script exits non-zero and prints no result
@@ -107,6 +125,10 @@ RECALL = dict(max_cluster=12, typo_rate=0.1)
 W_BASE, W_FIXED, W_MAX, PRUNE = 4, 8, 12, 0.55
 # phase stream: input chunks in generator order, native chunk width
 STREAM_INPUT, STREAM_CHUNK = 175_000, 350_000
+# phase serve: base corpus (cut from 1.4M, see its ``reduced``) and the
+# reference's serving mix (benchmarks/bench_sn.py::serve_body)
+SERVE_BASE = 350_000
+SERVE_OPS, SERVE_BATCH, SERVE_DELETE = 24, 200, 50
 KERNEL_TOL = 1e-5           # tests/test_kernels.py's fused-band tolerance
 # tests/test_kernels.py's (rtol, atol) for K2-K4, held at the edge cases
 TOL = {"banded_sim/f32": (1e-5, 1e-4), "banded_sim/bf16": (2e-2, 2e-1),
@@ -875,27 +897,36 @@ def _device_busy(fn):
                             / 1e6] for e in top]
 
 
+def _span_seconds(report):
+    """{span name: total seconds} and {span name: self seconds} of a
+    ``TraceReport``."""
+    return ({k: v["total_s"] for k, v in report.span_totals().items()},
+            dict(report.self_times()))
+
+
 def _breakdown(ents, cfg):
-    """One steady resolve taken apart: planning, the device shard program,
-    host collection into packed pairs; plus the device's busy time over
-    the shard program (torch.profiler).  Returns (record, the packed
-    outcome)."""
+    """One steady resolve taken apart by its trace (``cfg.trace``): the
+    ``plan`` span (profile, plan, auto caps), the ``shard_program`` span
+    (fenced by a synchronize), the ``collect`` span (host collection into
+    packed pairs) and the ``attempt`` span's own time (the public
+    frozensets, ``PackedOutcome.to_outcome``); plus the device's busy time
+    over one more shard program (torch.profiler).  Returns (record, the
+    traced result)."""
     from repro_torch import api
-    from repro_torch.api import runners as RN
     from repro_torch.resilience.retry import autosize_caps
+    res, traced_s = wall(lambda: api.resolve(ents, cfg.with_(trace=True),
+                                             device="cuda"))
+    total, own = _span_seconds(res.trace)
     runner = api.VmapRunner(R, device="cuda")
-    t0 = time.perf_counter()
     plan = api.plan_shards(ents, cfg, R)
     run_cfg, _ = autosize_caps(cfg, plan=plan)
-    plan_s = time.perf_counter() - t0
-    out, device_s = wall(lambda: runner.run_raw(ents, plan, run_cfg))
-    packed, collect_s = wall(lambda: RN._device_outcome_packed(out, run_cfg,
-                                                                R))
-    del out
     busy_s, top = _device_busy(lambda: runner.run_raw(ents, plan, run_cfg))
-    return {"plan_s": plan_s, "device_program_s": device_s,
-            "host_collect_packed_s": collect_s,
-            "device_kernel_busy_s": busy_s, "top_kernels_s": top}, packed
+    return {"traced_s": traced_s, "plan_s": total["plan"],
+            "device_program_s": total["shard_program"],
+            "host_collect_packed_s": total["collect"],
+            "frozensets_s": own["attempt"], "resolve_self_s": own["resolve"],
+            "span_coverage": res.trace.coverage(),
+            "device_kernel_busy_s": busy_s, "top_kernels_s": top}, res
 
 
 def _dedup_times(blocked):
@@ -945,10 +976,17 @@ def phase_main():
         raise AssertionError("main path matched nothing")
 
     steady_s = wall(run)[1]
-    breakdown, packed = _breakdown(ents, cfg)
-    breakdown["frozensets_s"] = wall(packed.to_outcome)[1]
-    breakdown.update(_dedup_times(packed.blocked))
-    del packed
+    breakdown, traced = _breakdown(ents, cfg)
+    # invariant 12: the traced resolve gives the untraced sets
+    if traced.blocking.pairs != res.blocking.pairs or \
+            traced.matches != res.matches:
+        raise AssertionError(
+            f"traced resolve: blocked {len(traced.blocking.pairs)} vs "
+            f"{len(res.blocking.pairs)}, matched {len(traced.matches)} vs "
+            f"{len(res.matches)}")
+    del traced
+    sets = _packed_sets(res)
+    breakdown.update(_dedup_times(sets[0]))
 
     scan, scan_s = wall(lambda: run(cfg.with_(band_engine="scan")))
     if scan.matches != res.matches or scan.blocking.pairs != \
@@ -969,12 +1007,14 @@ def phase_main():
            "overflow": [res.blocking.overflow, res.blocking.cand_overflow,
                         res.blocking.pair_overflow],
            "kernel_launches": launches,
-           "cold_s": cold_s, "steady_s": steady_s, "breakdown": breakdown,
+           "cold_s": cold_s, "steady_s": steady_s,
+           "traced_steady_s": breakdown["traced_s"],
+           "traced_equals_untraced": True, "breakdown": breakdown,
            "blocked_pairs_per_s": len(res.blocking.pairs) / steady_s,
            "max_memory_allocated": peak,
            "scan_s": scan_s, "scan_matched_equal": True}
     emit(rec)
-    return rec, ents, _packed_sets(res)
+    return rec, ents, sets
 
 
 def _k1_launches() -> int:
@@ -1022,8 +1062,9 @@ def _oracle_pool(workers):
 
 def _planned_run(ents, cfg, label):
     """One corpus resolved under one profile planner: the plan first (its
-    shard shape), then a cold and a steady resolve and one taken apart.
-    Returns (record, packed blocked, packed matched)."""
+    shard shape), then a cold resolve and a steady one, traced and taken
+    apart by its spans (``_breakdown``).  Returns (record, packed blocked,
+    packed matched)."""
     import numpy as np
     from repro_torch import api
     plan = api.plan_shards(ents, cfg, R)
@@ -1032,8 +1073,12 @@ def _planned_run(ents, cfg, label):
     blocked, matched = _packed_sets(res)
     bal = res.balance
     del res
-    steady_s = _counted_resolve(ents, cfg, label)[1]
+    before = _k1_launches()
     breakdown = _breakdown(ents, cfg)[0]
+    if _k1_launches() - before < 2:       # the resolve + the profiled run
+        raise AssertionError(f"{label}: K1 launched {_k1_launches() - before}"
+                             f" times over the traced steady resolve and "
+                             f"its profiled shard program")
     rec = {"label": label, "partitioner": cfg.partitioner,
            "cap_link": plan.cap_link,
            "rows_per_shard": R * plan.cap_link + cfg.window - 1,
@@ -1043,7 +1088,7 @@ def _planned_run(ents, cfg, label):
            "imbalance_planned": bal.imbalance_planned,
            "imbalance_realized": bal.imbalance_realized,
            "blocked": int(blocked.size), "matched": int(matched.size),
-           "cold_s": cold_s, "steady_s": steady_s,
+           "cold_s": cold_s, "traced_steady_s": breakdown["traced_s"],
            "device_program_s": breakdown["device_program_s"],
            "device_kernel_busy_s": breakdown["device_kernel_busy_s"],
            "breakdown": breakdown}
@@ -1067,6 +1112,36 @@ def _k1_at(rows, label, shards=R, f=32, words=8, window=W - 1):
             "max_abs_err": err,
             **_bound(n_bytes, _band_pairs(shards, rows, window)
                      * (2 * f + 6 * words), F32_OPS_PER_S)}
+
+
+class _Recorded:
+    """While entered, records the (shards, rows, features, words, window)
+    of every ``ops.fused_cheap_band`` call and the device of every
+    ``entities.sort_chunk`` call (the stream's chunk sorts); both are
+    restored on exit."""
+
+    def __enter__(self):
+        from repro_torch.core import entities as E
+        from repro_torch.kernels import ops
+        self.k1_shapes, self.sort_devices = set(), []
+        self.saved = band, sort = ops.fused_cheap_band, E.sort_chunk
+
+        def fused_cheap_band(feat, sig, *, window, **kw):
+            lead = (1,) * (3 - feat.dim())   # an unbatched call: 1 shard
+            self.k1_shapes.add((*lead, *feat.shape, sig.shape[-1], window))
+            return band(feat, sig, window=window, **kw)
+
+        def sort_chunk(ents, key=None):
+            self.sort_devices.append(ents["key"].device.type)
+            return sort(ents, key=key)
+
+        ops.fused_cheap_band, E.sort_chunk = fused_cheap_band, sort_chunk
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import entities as E
+        from repro_torch.kernels import ops
+        ops.fused_cheap_band, E.sort_chunk = self.saved
 
 
 def _assert_equal(label, got, want):
@@ -1252,121 +1327,65 @@ def phase_quality():
     return rec
 
 
-class _StreamStages:
-    """Seconds of the stream's stages, read by wrapping the functions the
-    resolver calls (restored on exit): ingest, sort runs, merge (the time
-    inside the merged stream's ``next``), chunk resolves (the runner's
-    ``resolve_packed``), and the union's dedup and frozensets (outside
-    the chunk resolves).  Also records, per chunk resolve, the K1
-    launches and the device of its entities, the shapes K1 was given
-    (S, M, F, signature words, window), and the device of every chunk
-    sort."""
+def _traced(fn, root, raises=None):
+    """Run ``fn`` under a tracer of its own, inside a root span named
+    ``root`` (how a run that raises, or a resume, which attaches no
+    report, is traced).  Returns (result or None, its ``TraceReport``);
+    ``raises``: the exception ``fn`` must raise."""
+    from repro_torch import obs
+    tracer = obs.Tracer()
+    out = None
+    with obs.activate(tracer), obs.span(root):
+        try:
+            out = fn()
+        except raises or ():
+            pass
+        else:
+            if raises is not None:
+                raise AssertionError(f"{root}: no {raises.__name__}")
+    return out, obs.TraceReport.from_tracer(tracer)
 
-    def __init__(self):
-        from repro_torch.api import results as RES
-        from repro_torch.api import runners as RN
-        from repro_torch.core import entities as E
-        from repro_torch.kernels import ops
-        from repro_torch.stream import resolver as SR
-        self.targets = [(SR, "_ingest"), (SR, "_ingest_checkpointed"),
-                        (SR, "_sorted_runs"), (SR, "rechunk"),
-                        (RN.VmapRunner, "resolve_packed"),
-                        (RES, "unique_packed"), (RES, "packed_to_frozenset"),
-                        (E, "sort_chunk"), (ops, "fused_cheap_band")]
-        self.seconds = dict.fromkeys(("ingest", "sort_runs", "merge",
-                                      "chunk_resolves", "dedup",
-                                      "frozensets"), 0.0)
-        self.chunk_k1, self.chunk_devices, self.sort_devices = [], [], []
-        self.k1_shapes = set()
-        self._inside_chunk = False
 
-    def _timed(self, stage, fn):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.seconds[stage] += time.perf_counter() - t0
-        return call
+def _stream_stages(label, report, launches, n_chunks, seen, sorts):
+    """Stage seconds of one streamed run from its trace, and its per-chunk
+    checks: ``n_chunks`` ``chunk`` spans, each holding one
+    ``shard_program`` span, and K1 launched once for each of those (K1
+    counts only launches on the card, so every chunk program ran there);
+    ``seen`` (a ``_Recorded``) saw ``sorts`` chunk sorts, all on the
+    card.  Returns the record."""
+    spans = report.spans
+    by_index = {s.index: s for s in spans}
 
-    def _host_only(self, stage, fn):
-        timed = self._timed(stage, fn)
-        return lambda *a, **kw: fn(*a, **kw) if self._inside_chunk \
-            else timed(*a, **kw)
+    def chunk_of(s):
+        while s.parent >= 0:
+            s = by_index[s.parent]
+            if s.name == "chunk":
+                return s.index
+        return None
 
-    def _merge(self, fn):
-        def rechunk(blocks, size):
-            it = fn(blocks, size)
-            while True:
-                t0 = time.perf_counter()
-                native = next(it, None)
-                self.seconds["merge"] += time.perf_counter() - t0
-                if native is None:
-                    return
-                yield native
-        return rechunk
-
-    def _chunk(self, fn):
-        def resolve_packed(runner, ents, plan, cfg):
-            before = _k1_launches()
-            self.chunk_devices.append(ents["key"].device.type)
-            self._inside_chunk = True
-            try:
-                return self._timed("chunk_resolves", fn)(runner, ents,
-                                                         plan, cfg)
-            finally:
-                self._inside_chunk = False
-                self.chunk_k1.append(_k1_launches() - before)
-        return resolve_packed
-
-    def _sort(self, fn):
-        def sort_chunk(ents, key=None):
-            self.sort_devices.append(ents["key"].device.type)
-            return fn(ents, key=key)
-        return sort_chunk
-
-    def _k1(self, fn):
-        def fused_cheap_band(feat, sig, *, window, **kw):
-            lead = (1,) * (3 - feat.dim())   # an unbatched call: 1 shard
-            self.k1_shapes.add((*lead, *feat.shape, sig.shape[-1], window))
-            return fn(feat, sig, window=window, **kw)
-        return fused_cheap_band
-
-    def __enter__(self):
-        self.saved = [getattr(obj, name) for obj, name in self.targets]
-        ingest, ingest_ck, runs, rechunk, chunk, uniq, fsets, sort, k1 = \
-            self.saved
-        wrapped = [self._timed("ingest", ingest),
-                   self._timed("ingest", ingest_ck),
-                   self._timed("sort_runs", runs), self._merge(rechunk),
-                   self._chunk(chunk), self._host_only("dedup", uniq),
-                   self._host_only("frozensets", fsets), self._sort(sort),
-                   self._k1(k1)]
-        for (obj, name), fn in zip(self.targets, wrapped):
-            setattr(obj, name, fn)
-        return self
-
-    def __exit__(self, *exc):
-        for (obj, name), fn in zip(self.targets, self.saved):
-            setattr(obj, name, fn)
-        return False
-
-    def check(self, label, chunks, sorts):
-        """Raise unless ``chunks`` chunk resolves each launched K1 on the
-        card and ``sorts`` chunk sorts ran on the card."""
-        if len(self.chunk_k1) != chunks or min(self.chunk_k1) < 1:
-            raise AssertionError(f"{label}: K1 launches per chunk resolve "
-                                 f"{self.chunk_k1}, {chunks} chunks")
-        if self.chunk_devices != ["cuda"] * chunks:
-            raise AssertionError(f"{label}: shard programs on "
-                                 f"{self.chunk_devices}")
-        if self.sort_devices != ["cuda"] * sorts:
-            raise AssertionError(f"{label}: chunk sorts on "
-                                 f"{self.sort_devices}")
-
-    def record(self):
-        return {"seconds": self.seconds, "k1_per_chunk": self.chunk_k1,
-                "k1_shapes": sorted(self.k1_shapes)}
+    chunks = [s.index for s in spans if s.name == "chunk"]
+    programs = [s for s in spans if s.name == "shard_program"]
+    per_chunk = [sum(chunk_of(p) == c for p in programs) for c in chunks]
+    if len(chunks) != n_chunks or per_chunk != [1] * n_chunks or \
+            launches != len(programs):
+        raise AssertionError(f"{label}: {len(chunks)} chunk spans (want "
+                             f"{n_chunks}), shard programs per chunk "
+                             f"{per_chunk}, K1 launches {launches}")
+    if seen.sort_devices != ["cuda"] * sorts:
+        raise AssertionError(f"{label}: chunk sorts on {seen.sort_devices}"
+                             f" (want {sorts} on the card)")
+    total, own = _span_seconds(report)
+    seconds = {k: total.get(k, 0.0) for k in (
+        "ingest", "sort_runs", "merge", "chunk", "shard_program", "collect",
+        "checkpoint_commit")}
+    # the union's dedup and frozensets run in the pass span's own time
+    seconds["pass_self"] = own.get("pass", 0.0)
+    return {"seconds": seconds, "k1_launches": launches,
+            "chunk_sorts": len(seen.sort_devices),
+            "rows_per_shard": sorted({p.attrs["rows_per_shard"]
+                                      for p in programs}),
+            "k1_shapes": sorted(seen.k1_shapes),
+            "span_coverage": report.coverage()}
 
 
 def _stream_gates(label, res, main_sets, n_chunks):
@@ -1389,7 +1408,10 @@ def _stream_gates(label, res, main_sets, n_chunks):
 def phase_stream(main_rec, main_sets):
     """M8 at full size: phase main's corpus, streamed in host chunks and
     resolved chunk by chunk with the seam carry; then the same run
-    checkpointed, killed mid-commit and resumed."""
+    checkpointed, killed mid-commit and resumed.  All three runs are
+    traced (``ERConfig.trace``): the stage seconds and the per-chunk
+    checks come from their spans; K1's shapes and the chunk sorts'
+    device from a ``_Recorded``."""
     import dataclasses
     import shutil
 
@@ -1405,20 +1427,22 @@ def phase_stream(main_rec, main_sets):
                       for s in range(0, N_FULL, STREAM_INPUT))
     cfg = api.ERConfig(**_cfg_kw(variant="repsn", runner="vmap",
                                  partitioner="balanced",
-                                 band_engine="pallas"))
+                                 band_engine="pallas", trace=True))
     n_chunks = -(-N_FULL // STREAM_CHUNK)
-    n_runs = N_FULL // STREAM_INPUT
     run = lambda **kw: stream.resolve_stream(
         chunks(), cfg, chunk_size=STREAM_CHUNK, device="cuda", **kw)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    n_runs = N_FULL // STREAM_INPUT
     ops.reset_launch_counts()
-    with _StreamStages() as stages:
+    with _Recorded() as seen:
         res, stream_s = wall(run)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    stages.check("stream", n_chunks, n_runs)
+    stages = _stream_stages("stream", res.trace, launches["fused_band"],
+                            n_chunks, seen, n_runs)
+    shapes = seen.k1_shapes
     _stream_gates("stream", res, main_sets, n_chunks)
     stats = dataclasses.asdict(res.stream)
     resilience = res.resilience._asdict()
@@ -1428,25 +1452,25 @@ def phase_stream(main_rec, main_sets):
     shutil.rmtree(ckpt, ignore_errors=True)
     kill = api.FaultPlan(crash_before_commit=2)
     ops.reset_launch_counts()
-    with _StreamStages() as killed_stages:
-        t0 = time.perf_counter()
-        try:
-            run(checkpoint_dir=str(ckpt), fault_plan=kill)
-        except api.InjectedFault:
-            killed_s = time.perf_counter() - t0
-        else:
-            raise AssertionError("stream checkpoint: no InjectedFault")
-    killed_stages.check("stream killed", kill.crash_before_commit + 1,
-                        n_runs)
-    with _StreamStages() as resume_stages:
-        resumed, resume_s = wall(lambda: api.resume(str(ckpt), cfg=cfg,
-                                                    device="cuda"))
-    torch.cuda.synchronize()
-    ckpt_launches = ops.launch_counts()
+    with _Recorded() as killed_seen:
+        (_, killed), killed_s = wall(lambda: _traced(
+            lambda: run(checkpoint_dir=str(ckpt), fault_plan=kill),
+            "killed", raises=api.InjectedFault))
+    killed_launches = ops.launch_counts()["fused_band"]
+    killed_stages = _stream_stages(
+        "stream killed", killed, killed_launches,
+        kill.crash_before_commit + 1, killed_seen, n_runs)
+    ops.reset_launch_counts()
+    with _Recorded() as resume_seen:
+        (resumed, resumed_tr), resume_s = wall(lambda: _traced(
+            lambda: api.resume(str(ckpt), cfg=cfg, device="cuda"),
+            "resume"))
+    resume_launches = ops.launch_counts()["fused_band"]
     # the resume redoes the torn chunk and the ones after it; its sorted
     # runs were committed before the kill
-    resume_stages.check("stream resumed",
-                        n_chunks - kill.crash_before_commit, 0)
+    resume_stages = _stream_stages(
+        "stream resumed", resumed_tr, resume_launches,
+        n_chunks - kill.crash_before_commit, resume_seen, 0)
     _stream_gates("stream resumed", resumed, main_sets, n_chunks)
     spooled = resumed.stream.spooled_bytes
     resumed_stats = dataclasses.asdict(resumed.stream)
@@ -1457,32 +1481,207 @@ def phase_stream(main_rec, main_sets):
         raise AssertionError(f"stream resumed stats {resumed_stats} vs "
                              f"{stats}")
 
-    # K1 at each shard shape the three runs gave it (after the counts
-    # were read)
-    k1_shapes = stages.k1_shapes | killed_stages.k1_shapes \
-        | resume_stages.k1_shapes
-    if not k1_shapes:
-        raise AssertionError("stream: no K1 shape recorded")
+    # K1 at each shard shape the three runs' shard programs gave it (after
+    # the counts were read)
     k1 = [_k1_at(m, f"stream chunk shape {(s, m, f, words, window)}",
                  shards=s, f=f, words=words, window=window)
-          for s, m, f, words, window in sorted(k1_shapes)]
+          for s, m, f, words, window in sorted(
+              shapes | killed_seen.k1_shapes | resume_seen.k1_shapes)]
 
     rec = {"phase": "stream", "n": N_FULL, "input_chunk": STREAM_INPUT,
            "chunk_size": STREAM_CHUNK, "w": W, "r": R, "hops": HOPS,
            "variant": "repsn", "band_engine": "pallas", "emit": "pairs",
-           "reduced": [], "blocked": int(main_sets[0].size),
+           "trace": True, "reduced": [], "blocked": int(main_sets[0].size),
            "matched": int(main_sets[1].size), "stream_stats": stats,
            "resilience": resilience, "launches": launches,
            "stream_s": stream_s, "main_steady_s": main_rec["steady_s"],
-           "stages": stages.record(), "k1_at_chunk_shapes": k1,
+           "stages": stages, "k1_at_chunk_shapes": k1,
            "max_memory_allocated": peak,
            "main_max_memory_allocated": main_rec["max_memory_allocated"],
            "checkpoint": {"kill": "crash_before_commit=2",
                           "killed_s": killed_s, "resume_s": resume_s,
                           "spooled_bytes": spooled,
-                          "launches": ckpt_launches,
-                          "killed_stages": killed_stages.record(),
-                          "resume_stages": resume_stages.record()}}
+                          "launches": {"fused_band": killed_launches
+                                       + resume_launches},
+                          "killed_stages": killed_stages,
+                          "resume_stages": resume_stages}}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _check_edit(label, svc, res, prev):
+    """Raise unless ``res`` (an ``IncrementalResult``) is the difference
+    between the served sets ``prev`` = (blocked, matched) before it and
+    the service's served sets now: prev - retired + new == now, with new
+    disjoint from prev and retired inside it, and a pair id for every new
+    pair.  Returns the served sets now."""
+    import numpy as np
+    from repro_torch.api.results import (pack_pair_set, setdiff_sorted,
+                                         union_sorted)
+    now = (svc.packed_pairs, svc.packed_matches)
+    for (new, gone), before, after, what in (
+            ((res.new_pairs, res.retired_pairs), prev[0], now[0], "pairs"),
+            ((res.new_matches, res.retired_matches), prev[1], now[1],
+             "matches")):
+        new, gone = pack_pair_set(new), pack_pair_set(gone)
+        if setdiff_sorted(gone, before).size or \
+                setdiff_sorted(new, before).size != new.size or \
+                not np.array_equal(union_sorted(setdiff_sorted(before, gone),
+                                                new), after):
+            raise AssertionError(f"{label}: the result's {what} edits are "
+                                 f"not the served sets' difference")
+    if set(res.pair_ids) != set(res.new_pairs):
+        raise AssertionError(f"{label}: pair ids for {len(res.pair_ids)} "
+                             f"of {len(res.new_pairs)} new pairs")
+    return now
+
+
+def phase_serve(main_rec):
+    """M9 + M10 on the card: phase main's generator and config at a base
+    corpus of SERVE_BASE records, bootstrapped into a traced
+    ``ResolutionService`` on the card (its worker thread started), then
+    SERVE_OPS micro-batches of SERVE_BATCH fresh inserts with a delete of
+    SERVE_DELETE random live entities after every 4th (the reference's
+    serving mix, ``benchmarks/bench_sn.py::serve_body``), every other op
+    through the futures API.  Gates: every result is the served sets'
+    difference, every delta call launched K1 (one ``shard_program`` span a
+    call), the served sets equal a fresh resolve of the live corpus on the
+    card, and a snapshot restored on the card serves the same sets under
+    the same pair ids; K1 is then held against its plain version at every
+    shape the delta calls gave it."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import entities as E
+    from repro_torch.kernels import ops
+
+    n_all = SERVE_BASE + SERVE_OPS * SERVE_BATCH
+    host = E.synth_arrays(np.random.default_rng(0), n_all, n_keys=N_KEYS,
+                          dup_frac=0.2, text_len=16)
+    cfg = api.ERConfig(**_cfg_kw(variant="repsn", runner="vmap",
+                                 partitioner="balanced",
+                                 band_engine="pallas", trace=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _Recorded() as seen:
+        svc, bootstrap_s = wall(lambda: api.serve(
+            cfg, initial=E.host_take(host, slice(0, SERVE_BASE)),
+            device="cuda"))
+        try:
+            live = np.arange(n_all) < SERVE_BASE
+            rng = np.random.default_rng(1)
+            prev = (svc.packed_pairs, svc.packed_matches)
+            op_s = {"insert": [], "delete": []}
+            n_ops = 0
+
+            def apply(kind, arg):
+                nonlocal prev, n_ops
+                via_future = n_ops % 2 == 1
+                t0 = time.perf_counter()
+                if kind == "insert":
+                    res = svc.submit_insert(arg).result(timeout=600) \
+                        if via_future else svc.resolve_incremental(arg)
+                else:
+                    res = svc.submit_delete(arg).result(timeout=600) \
+                        if via_future else svc.delete(arg)
+                op_s[kind].append(time.perf_counter() - t0)
+                prev = _check_edit(f"serve op {n_ops} ({kind})", svc, res,
+                                   prev)
+                n_ops += 1
+
+            for op in range(SERVE_OPS):
+                lo = SERVE_BASE + op * SERVE_BATCH
+                apply("insert",
+                      E.host_take(host, slice(lo, lo + SERVE_BATCH)))
+                live[lo:lo + SERVE_BATCH] = True
+                if op % 4 == 3:
+                    gone = rng.choice(np.flatnonzero(live), SERVE_DELETE,
+                                      replace=False)
+                    apply("delete", host["eid"][gone])
+                    live[gone] = False
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            st = svc.stats()
+            report = svc.trace_report()
+        finally:
+            svc.close(timeout=600)
+    programs = [s for s in report.spans if s.name == "shard_program"]
+    if not st.device_calls == len(programs) == launches["fused_band"]:
+        raise AssertionError(f"serve: {st.device_calls} delta calls, "
+                             f"{len(programs)} shard_program spans, K1 "
+                             f"launched {launches['fused_band']} times")
+    if st.batches != n_ops + 1 or st.failure is not None or \
+            st.degraded_batches or st.live_entities != int(live.sum()):
+        raise AssertionError(f"serve: stats {st}")
+
+    # the served sets against a fresh resolve of the live corpus
+    alive = E.host_take(host, np.flatnonzero(live))
+    fresh, fresh_s = wall(lambda: api.resolve(
+        E.make_entities(alive["key"], alive["eid"], payload=alive["payload"],
+                        device="cuda"), cfg.with_(trace=False),
+        device="cuda"))
+    fresh_sets = _packed_sets(fresh)
+    del fresh
+    _assert_equal("serve blocked vs a fresh resolve", svc.packed_pairs,
+                  fresh_sets[0])
+    _assert_equal("serve matched vs a fresh resolve", svc.packed_matches,
+                  fresh_sets[1])
+
+    # a snapshot restored on the card: same sets, same pair ids
+    snap = ROOT / "build" / "serve_snapshot"
+    shutil.rmtree(snap, ignore_errors=True)
+    snapshot_s = wall(lambda: svc.snapshot(str(snap)))[1]
+    back, restore_s = wall(lambda: api.ResolutionService.restore(
+        str(snap), cfg, start=False, device="cuda"))
+    shutil.rmtree(snap)
+    _assert_equal("serve restored blocked", back.packed_pairs,
+                  svc.packed_pairs)
+    _assert_equal("serve restored matched", back.packed_matches,
+                  svc.packed_matches)
+    if back._pair_ids != svc._pair_ids or back.device.type != "cuda":
+        raise AssertionError("serve: the restored service's pair ids or "
+                             "device differ")
+    del back
+
+    # K1 at every shape the delta calls gave it (after the counts were
+    # read), the bootstrap's included
+    k1 = [_k1_at(m, f"serve delta shape {(r, m, f, words, window)}",
+                 shards=r, f=f, words=words, window=window)
+          for r, m, f, words, window in sorted(seen.k1_shapes)]
+    inserted = SERVE_OPS * SERVE_BATCH
+    rec = {"phase": "serve", "n_base": SERVE_BASE, "w": W, "r": R,
+           "hops": HOPS, "variant": "repsn", "band_engine": "pallas",
+           "trace": True, "ops": SERVE_OPS, "batch": SERVE_BATCH,
+           "delete_every_4th": SERVE_DELETE,
+           "shard_buckets": [2, 4, 8], "cap_floor": 64,
+           "reduced": ["base corpus 1.4M -> 350,000: at 1.4M the "
+                       "bootstrap's one region pads to 2 x 2,097,152 rows "
+                       "and its edit-DP buffer to 2 x 18.9M slots, three "
+                       "times phase main's; and the script's time limit"],
+           "bootstrap_s": bootstrap_s, "p50_ms": st.p50_ms,
+           "p95_ms": st.p95_ms,
+           "insert_op_s": op_s["insert"], "delete_op_s": op_s["delete"],
+           "inserts_per_s": inserted / sum(op_s["insert"]),
+           "max_memory_allocated": peak,
+           "main_max_memory_allocated": main_rec["max_memory_allocated"],
+           "launches": launches, "device_calls": st.device_calls,
+           "shapes": [list(x) for x in st.shapes],
+           "rows_per_shard": sorted({p.attrs["rows_per_shard"]
+                                        for p in programs}),
+           "k1_at_serve_shapes": k1,
+           "batches": st.batches, "compactions": st.compactions,
+           "live_entities": st.live_entities, "pairs": st.pairs,
+           "matches": st.matches,
+           "span_coverage": report.coverage(),
+           "span_totals": _span_seconds(report)[0],
+           "fresh_resolve_s": fresh_s, "snapshot_s": snapshot_s,
+           "restore_s": restore_s, "fresh_equal": True,
+           "restored_equal": True}
     emit(rec)
     torch.cuda.empty_cache()
     return rec
@@ -1521,13 +1720,15 @@ def main() -> int:
     quality = phase_quality()
     streamed = phase_stream(main_rec, main_sets)
     del main_sets
+    served = phase_serve(main_rec)
     # launches on each kernel's path: K1 on the resolve paths (main,
-    # planned, quality, stream and its checkpointed run), K2 and K3 on the
-    # entry point's bands, K4 on its attention
+    # planned, quality, stream and its checkpointed run, serve's delta
+    # calls), K2 and K3 on the entry point's bands, K4 on its attention
     launches = {"fused_band": sum(rec[k]["fused_band"] for rec, k in (
                     (main_rec, "kernel_launches"), (planned, "launches"),
                     (quality, "launches"), (streamed, "launches"),
-                    (streamed["checkpoint"], "launches"))),
+                    (streamed["checkpoint"], "launches"),
+                    (served, "launches"))),
                 "banded_sim": bands["launches"]["banded_sim"],
                 "jaccard_band": bands["launches"]["jaccard_band"],
                 "local_attn": attention["launches"]["local_attn"]}

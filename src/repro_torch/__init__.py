@@ -17,8 +17,12 @@ counterpart of the same name:
                fault injection
   data/        corpus generators and the dedup stage
   quality/     adaptive windows, recall metrics against gold pairs
-  obs/, perf/  no-op seams for tracing (M10) and the executable cache
-               (M11)
+  serve/       online incremental serving: the sorted index, delta
+               matching on the card, the micro-batched service and its
+               admission control
+  obs/         tracing + metrics: spans, counters, histograms, the
+               ``TraceReport`` and its Chrome export
+  perf/        the executable-cache seam (counters 0; the cache is M11)
 
 Differences of form, not of result: the shard axis the reference vmaps is
 an explicit leading dim ``r`` on every tensor of the shard program, the
@@ -26,8 +30,8 @@ named-axis collectives become ops over that dim, and bit-packed signatures
 travel as int32 bit views of the reference's uint32 words.
 
 Entry points (``api.resolve``, ``api.link``, ``api.resume``,
-``stream.resolve_stream``, ``stream.link_stream``, ``api.VmapRunner``) run on
-the CUDA device unless the caller passes ``device="cpu"``; without a card
-they raise instead of falling back.  This package imports neither ``jax``
-nor ``repro``.
+``api.serve``, ``stream.resolve_stream``, ``stream.link_stream``,
+``api.VmapRunner``) run on the CUDA device unless the caller passes
+``device="cpu"``; without a card they raise instead of falling back.
+This package imports neither ``jax`` nor ``repro``.
 """

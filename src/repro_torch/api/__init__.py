@@ -10,11 +10,17 @@
 
 Runs on the CUDA card unless ``device="cpu"`` is passed.  Under
 ``ERConfig(passes=...)`` ``resolve`` returns a ``MultiPassResult``;
-``resume`` continues a checkpointed ``repro_torch.stream`` run.
+``resume`` continues a checkpointed ``repro_torch.stream`` run; ``serve``
+starts a ``ResolutionService`` (``repro_torch.serve``);
+``ERConfig(trace=True)`` attaches a ``TraceReport`` (``repro_torch.obs``).
 """
+# repro_torch.obs is a leaf (stdlib/numpy only at import), so the eager
+# import is cycle-safe — unlike serve/resilience, which resolve lazily below
+from repro_torch.obs import (SCHEMA_VERSION, TraceReport, Tracer, pack_stats,
+                             unpack_stats)
 from repro_torch.api.config import ERConfig, SortKeySpec
 from repro_torch.api.facade import default_bounds, link, make_runner, \
-    resolve, resume
+    resolve, resume, serve
 from repro_torch.api.linkage import sequential_link_pairs, tag_sources
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
                                      ERMetrics, ERResult, MultiPassResult,
@@ -36,14 +42,18 @@ from repro_torch.balance import (KeyProfile, ShardPlan,
 from repro_torch.core.window import (available_band_engines,
                                      get_band_engine, register_band_engine)
 
+_SERVE_TYPES = ("ResolutionService", "IncrementalResult", "ServeStats")
 _RESILIENCE_TYPES = ("StreamCheckpoint", "FaultPlan", "InjectedFault",
                      "CapacityOverflowError")
 
 
 def __getattr__(name):
-    # the resilience types resolve lazily (PEP 562): the resilience package
-    # reaches repro_torch.api submodules, so an eager import here would be
-    # a cycle
+    # the serve/resilience types resolve lazily (PEP 562): both packages
+    # reach repro_torch.api submodules, so an eager import here would be a
+    # cycle
+    if name in _SERVE_TYPES:
+        import repro_torch.serve as _serve
+        return getattr(_serve, name)
     if name in _RESILIENCE_TYPES:
         import repro_torch.resilience as _resilience
         return getattr(_resilience, name)
@@ -51,17 +61,23 @@ def __getattr__(name):
 
 
 __all__ = [
-    "ERConfig", "SortKeySpec", "resolve", "link", "resume", "make_runner",
-    "default_bounds", "StreamCheckpoint", "FaultPlan", "InjectedFault",
-    "CapacityOverflowError", "BlockingResult", "ERResult", "ERMetrics",
-    "BalanceMetrics", "PerfStats", "ResilienceStats", "MultiPassResult",
-    "pairs_from_band", "packed_pairs_from_band", "packed_pairs_from_idx",
+    "ERConfig", "SortKeySpec",
+    "resolve", "link", "serve", "resume", "make_runner", "default_bounds",
+    "ResolutionService", "IncrementalResult", "ServeStats",
+    "ResilienceStats", "StreamCheckpoint", "FaultPlan", "InjectedFault",
+    "CapacityOverflowError",
+    "BlockingResult", "ERResult", "ERMetrics", "BalanceMetrics", "PerfStats",
+    "MultiPassResult",
+    "pairs_from_band",
+    "packed_pairs_from_band", "packed_pairs_from_idx",
     "packed_pairs_from_part", "pack_pairs", "unpack_pairs",
-    "packed_to_frozenset", "Runner", "RunnerOutcome", "PackedOutcome",
-    "SequentialRunner", "VmapRunner", "shard_input", "register_variant",
-    "get_variant", "available_variants", "register_band_engine",
-    "get_band_engine", "available_band_engines", "KeyProfile", "ShardPlan",
-    "profile_keys", "plan_shards", "register_partitioner",
-    "get_partitioner", "available_partitioners", "tag_sources",
-    "sequential_link_pairs",
+    "packed_to_frozenset",
+    "Runner", "RunnerOutcome", "PackedOutcome",
+    "SequentialRunner", "VmapRunner", "shard_input",
+    "register_variant", "get_variant", "available_variants",
+    "register_band_engine", "get_band_engine", "available_band_engines",
+    "KeyProfile", "ShardPlan", "profile_keys", "plan_shards",
+    "register_partitioner", "get_partitioner", "available_partitioners",
+    "tag_sources", "sequential_link_pairs",
+    "Tracer", "TraceReport", "pack_stats", "unpack_stats", "SCHEMA_VERSION",
 ]

@@ -4,9 +4,9 @@
 The port accepts every field and every config string of the reference and
 repeats its validation, so one kwargs dict builds both packages' configs
 (``matcher`` may be either package's cascade: it is converted to this
-package's ``CascadeMatcher``).  Fields whose feature is not ported yet
-(``trace``, ``runner="shard_map"``) are accepted here and refused by
-``api.resolve`` with NotImplementedError naming the ROADMAP item.
+package's ``CascadeMatcher``).  ``runner="shard_map"``, whose runner is
+not ported yet, is accepted here and refused by ``api.resolve`` with
+NotImplementedError naming the ROADMAP item.
 ``band_interpret`` and ``jit_cache`` steer the reference's Pallas
 interpreter and executable cache, which the port does not have: they are
 accepted and have no effect.
@@ -109,7 +109,11 @@ class ERConfig:
       window_policy, window_max
                    "adaptive" grows each entity's window from ``window``
                    to its key block's density, capped at ``window_max``
-      trace        accepted, refused by resolve until ported (M10)
+      trace        record a span/metrics ``TraceReport`` and attach it
+                   as ``result.trace`` (resolve / link / resolve_stream /
+                   link_stream; a served config keeps one tracer for the
+                   service's lifetime, read by ``trace_report()``).
+                   Excluded from ``static_fingerprint``
       prune_policy, prune_threshold
                    evidence pruning, as in the reference
       band_interpret, jit_cache

@@ -11,8 +11,9 @@ profile-backed planner (uniform | blocksplit | pairrange); explicit
 ``bounds`` (a raw array or a ShardPlan) always win.  ``cfg.passes`` runs
 multi-pass blocking (a ``MultiPassResult``), ``window_policy="adaptive"``
 per-entity windows.  ``resume`` continues a checkpointed stream
-(``repro_torch.stream``).  ``device=None`` runs on the CUDA card and raises
-without one.
+(``repro_torch.stream``); ``serve`` starts an online incremental service
+(``repro_torch.serve``).  ``cfg.trace`` attaches a ``TraceReport``.
+``device=None`` runs on the CUDA card and raises without one.
 """
 from __future__ import annotations
 
@@ -38,14 +39,10 @@ from repro_torch.resilience import retry as RZ
 def _refuse_unported(cfg: ERConfig) -> None:
     """Features of the reference that the port does not have yet raise,
     naming their ROADMAP item — never silently something else."""
-    unported = [
-        (cfg.trace, "trace=True", "M10"),
-        (cfg.runner == "shard_map", "runner='shard_map'", "M11"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+    if cfg.runner == "shard_map":
+        raise NotImplementedError(
+            "runner='shard_map' is not ported to repro_torch yet "
+            "(ROADMAP M11)")
 
 
 def make_runner(cfg: ERConfig, *, device=None) -> Runner:
@@ -137,6 +134,33 @@ def _balance_metrics(plan: B.ShardPlan, out, window: int):
         cap_link=plan.cap_link)
 
 
+def attach_trace(res, tracer):
+    """Capture ``tracer`` as a ``TraceReport`` and attach it to ``res``
+    (ERResult / MultiPassResult / StreamResult — whichever of the stats
+    fields the result carries ride into the unified schema).  Pair/match
+    gauges are stamped here so every report answers pairs-per-second
+    without consulting the result object."""
+    m = tracer.metrics
+    m.gauge("pairs").set(len(res.blocking.pairs))
+    m.gauge("matches").set(len(res.matches))
+    stats = [getattr(res, f, None)
+             for f in ("balance", "perf", "stream", "resilience")]
+    return _replace(res, trace=OBS.TraceReport.from_tracer(tracer, stats))
+
+
+def owned_trace(cfg: ERConfig, root: str, attrs: dict, fn):
+    """Return ``fn()`` — under ``cfg.trace`` with no tracer active on this
+    thread, run inside a fresh tracer's ``root`` span (``attrs`` its
+    attributes) and with the report attached (``attach_trace``).  With a
+    tracer already active, ``fn``'s spans join that outer trace."""
+    if not cfg.trace or OBS.current_tracer() is not None:
+        return fn()
+    tracer = OBS.Tracer()
+    with OBS.activate(tracer), OBS.span(root, **attrs):
+        res = fn()
+    return attach_trace(res, tracer)
+
+
 def resolve(ents: dict, cfg: ERConfig, *, bounds=None, device=None):
     """Run the configured ER pipeline over one entity set (a port entity
     dict, on any device; it is moved to ``device``).
@@ -148,9 +172,21 @@ def resolve(ents: dict, cfg: ERConfig, *, bounds=None, device=None):
 
     Returns an ``ERResult`` — or, when ``cfg.passes`` selects multi-pass
     blocking, a ``MultiPassResult`` holding the per-pass ERResults plus
-    the union pair sets."""
+    the union pair sets.  Under ``cfg.trace`` the result also carries a
+    ``repro_torch.obs.TraceReport`` (``result.trace``) — unless a tracer
+    is already active on this thread, in which case the call adds its
+    spans to that outer trace instead (multi-pass passes, stream
+    chunks)."""
     device = resolve_device(device)
     _refuse_unported(cfg)
+    return owned_trace(
+        cfg, "resolve", dict(variant=cfg.variant, runner=cfg.runner,
+                             window=cfg.window),
+        lambda: _resolve(ents, cfg, bounds=bounds, device=device))
+
+
+def _resolve(ents: dict, cfg: ERConfig, *, bounds, device):
+    """``resolve`` minus trace ownership (the body every caller shares)."""
     ents = E.to_device(ents, device)
     if cfg.passes:
         return _resolve_multipass(ents, cfg, bounds=bounds, device=device)
@@ -329,6 +365,33 @@ def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, device=None):
         res = _replace(res, passes=tuple(_untag(r, offset)
                                          for r in res.passes))
     return _untag(res, offset)
+
+
+def serve(cfg: ERConfig, *, initial=None, device=None, **kwargs):
+    """Start an online incremental ``repro_torch.serve.ResolutionService``
+    under ``cfg`` (single-pass, non-linkage configs only): inserts and
+    deletes arrive as micro-batches, and the served pair sets stay
+    bit-identical to a from-scratch ``resolve`` over the live corpus at
+    every point.  ``initial`` seeds the corpus through the same insert
+    path; ``device`` is where every delta call runs (None = the CUDA card,
+    raising without one; "cpu" runs on the CPU); remaining kwargs
+    (``max_batch``, ``max_wait_ms``, ``spool_dir``, ``admission``,
+    ``chaos``, ...) go to the service constructor.
+
+    Under brownout (``admission=AdmissionConfig(...)``) the bit-parity
+    invariant relaxes to eventually-exact: blocked pairs stay exact, new
+    matches may be deferred, and ``repair()`` restores full parity
+    (DESIGN.md §13)."""
+    if cfg.window_policy == "adaptive":
+        # the incremental profile changes with every insert/delete, so weff
+        # would vary over time and served pair sets could never stay
+        # bit-identical to a from-scratch resolve
+        raise ValueError(
+            "window_policy='adaptive' is not servable: per-entity windows "
+            "derive from the full-corpus key profile, which is incremental "
+            "(time-varying) in the serve path; use a fixed window")
+    from repro_torch.serve import ResolutionService
+    return ResolutionService(cfg, initial=initial, device=device, **kwargs)
 
 
 def resume(checkpoint_dir: str, *, chunks=None, cfg: ERConfig = None,

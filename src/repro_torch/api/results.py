@@ -35,20 +35,63 @@ def pack_pairs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (lo << PACKED_DTYPE(32)) | hi
 
 
-def unique_packed(packed: np.ndarray) -> np.ndarray:
-    """Sorted distinct values of a packed pair array: one sort and a
-    neighbour compare — ``np.unique``'s answer.  Newer numpy releases
-    route ``np.unique`` through a hash table, which measured ~9 s per call
-    on 12.6M pairs against under 1 s for the sort (a profile of
-    ``chip_smoke.py``'s main path); host collection is the resolve's
-    bottleneck, so the sort is spelled out."""
-    s = np.sort(np.asarray(packed, PACKED_DTYPE))
+def _drop_repeats(s: np.ndarray) -> np.ndarray:
+    """The distinct values of a sorted 1-D array, in order."""
     if s.size < 2:
         return s
     keep = np.empty(s.shape, bool)
     keep[0] = True
     np.not_equal(s[1:], s[:-1], out=keep[1:])
     return s[keep]
+
+
+def sort_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` of a 1-D array (same values, same dtype): one sort
+    and a neighbour compare.  Newer numpy releases route ``np.unique`` —
+    and with it ``setdiff1d``, ``union1d``, ``intersect1d`` and ``isin`` —
+    through a hash table, which measured ~9 s per call on 12.6M pairs
+    against under 1 s for the sort (a profile of ``chip_smoke.py``'s main
+    path), so the port spells the sort out here and in the sorted set
+    operations below."""
+    return _drop_repeats(np.sort(np.asarray(a).reshape(-1)))
+
+
+def unique_packed(packed: np.ndarray) -> np.ndarray:
+    """Sorted distinct values of a packed pair array (``sort_unique`` as
+    uint64)."""
+    return sort_unique(np.asarray(packed, PACKED_DTYPE))
+
+
+def isin_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.isin(a, b)`` where ``b`` is sorted and distinct (``a`` any 1-D
+    array): one ``searchsorted`` of ``a`` into ``b``."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.size == 0 or b.size == 0:
+        return np.zeros(a.shape, bool)
+    i = np.searchsorted(b, a)
+    np.minimum(i, b.size - 1, out=i)
+    return b[i] == a
+
+
+def setdiff_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.setdiff1d(a, b)`` for sorted distinct ``a`` and ``b`` (the
+    values of ``a`` not in ``b``, in ``a``'s dtype)."""
+    a = np.asarray(a)
+    return a[~isin_sorted(a, b)]
+
+
+def intersect_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.intersect1d(a, b)`` for sorted distinct ``a`` and ``b`` of one
+    dtype."""
+    a = np.asarray(a)
+    return a[isin_sorted(a, b)]
+
+
+def union_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.union1d(a, b)`` for sorted distinct ``a`` and ``b`` of one
+    dtype: the two runs merged by one stable sort (a single merge pass
+    over two sorted runs) and the values they share dropped."""
+    return _drop_repeats(np.sort(np.concatenate([a, b]), kind="stable"))
 
 
 def unpack_pairs(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -212,7 +255,8 @@ class ERResult:
     resilience: Optional[ResilienceStats] = None  # overflow-recovery
     #                                   telemetry (retries / escalations /
     #                                   final caps — DESIGN.md §11)
-    trace: Optional[object] = None  # trace report (M10; always None)
+    trace: Optional[object] = None  # repro_torch.obs.TraceReport when
+    #                                 the run executed under trace=True
 
     @property
     def pairs(self) -> FrozenSet[Pair]:
@@ -238,7 +282,8 @@ class MultiPassResult:
     matches: FrozenSet[Pair]
     metrics: Optional[ERMetrics] = None
     resilience: Optional[ResilienceStats] = None  # summed across passes
-    trace: Optional[object] = None  # trace report (M10; always None)
+    trace: Optional[object] = None  # repro_torch.obs.TraceReport spanning
+    #                                 every pass (trace=True)
 
     @property
     def pairs(self) -> FrozenSet[Pair]:

@@ -145,10 +145,28 @@ def _to_host(out):
     return {k: _to_host(v) for k, v in out.items()}
 
 
+def _nbytes(out) -> int:
+    """Summed bytes of every tensor in a (nested) shard-program output."""
+    if torch.is_tensor(out):
+        return out.numel() * out.element_size()
+    if isinstance(out, dict):
+        return sum(_nbytes(v) for v in out.values())
+    return 0
+
+
 def _device_outcome_packed(out: dict, cfg, r: int) -> PackedOutcome:
     """Per-shard device output -> PackedOutcome (host collection +
-    accounting)."""
-    with OBS.span("collect"):
+    accounting).  Under an active tracer the collection runs inside a
+    ``collect`` span carrying the bytes of the device output it copies to
+    the host (also the ``transfer_bytes`` counter) and the realized
+    per-shard loads."""
+    sp = OBS.span("collect")
+    with sp:
+        if sp.enabled:
+            nbytes = _nbytes(out)
+            sp.set(transfer_bytes=nbytes)
+            OBS.current_tracer().metrics.counter("transfer_bytes") \
+                .inc(nbytes)
         out = _to_host(out)
         variant = get_variant(cfg.variant)
         col = variant.collect(out)
@@ -167,6 +185,8 @@ def _device_outcome_packed(out: dict, cfg, r: int) -> PackedOutcome:
                 if "mask_overflow" in out[p]:
                     pair_overflow += int(out[p]["mask_overflow"].sum()) + \
                         int(out[p]["match_overflow"].sum())
+        if sp.enabled:
+            sp.set(load=load)
     return PackedOutcome(blocked=col.blocked, matched=col.matched,
                          load=load, overflow=overflow, num_shards=r,
                          cand_count=tuple(int(c) for c in cand_count),
@@ -197,10 +217,19 @@ class VmapRunner:
         variant = get_variant(cfg.variant)
         ents, b, cap_link = _apply_plan(E.to_device(ents, dev), bounds, r,
                                         cfg)
-        with OBS.span("shard_program", runner="vmap", shards=r), \
-                torch.inference_mode():
-            return variant.shard_program(shard_input(ents, r), b, r, cfg,
-                                         cap_link=cap_link)
+        with torch.inference_mode():
+            stacked = shard_input(ents, r)
+            rows = int(stacked["key"].shape[1])
+            sp = OBS.span("shard_program", device=True, runner="vmap",
+                          shards=r, rows_per_shard=rows)
+            with sp:
+                out = variant.shard_program(stacked, b, r, cfg,
+                                            cap_link=cap_link)
+                if sp.enabled and dev.type == "cuda":
+                    # kernels return before the card ran them: fence only
+                    # when traced, so the untraced path is unchanged
+                    torch.cuda.synchronize(dev)
+        return out
 
     def resolve(self, ents: dict, bounds, cfg) -> RunnerOutcome:
         return self.resolve_packed(ents, bounds, cfg).to_outcome()

@@ -1,29 +1,47 @@
-"""The span seam of ``repro.obs``, disabled.
+"""``repro_torch.obs`` — unified tracing + metrics (port of ``repro.obs``,
+DESIGN.md §12).
 
-Tracing is not ported yet (ROADMAP M10): ``ERConfig(trace=True)`` raises
-``NotImplementedError`` in the facade, and every span here is a shared
-no-op, so instrumented code keeps the reference's shape."""
-from __future__ import annotations
+One observability substrate for the whole port:
 
+  * ``span(name, **attrs)``   the instrumentation primitive: a context
+                              manager that is a shared no-op singleton
+                              when no tracer is active (one thread-local
+                              lookup) and records monotonic timing +
+                              nesting when one is
+  * ``Tracer`` / ``activate`` per-run span collector, installed
+                              per-thread; ``export_chrome`` writes a
+                              Chrome/Perfetto ``trace.json``
+  * ``Counter`` / ``Gauge`` / ``Histogram`` / ``MetricsRegistry``
+                              typed metrics behind one ``to_dict`` schema
+                              (``Histogram`` is a bounded ring buffer —
+                              the serve latency window rides on it)
+  * ``TraceReport``           the per-run artifact ``ERConfig.trace=True``
+                              attaches to results: spans + metrics + the
+                              five stats types unified behind
+                              ``metrics()`` (``pack_stats``/
+                              ``unpack_stats`` round-trip them losslessly)
 
-class _NoopSpan:
-    enabled = False
+Every module here is a leaf (stdlib + numpy at import time; ``torch`` only
+inside a profiled span), so ``repro_torch.api``, ``stream``, ``serve`` and
+``resilience`` import it without cycles; the schema's class lookups
+resolve lazily at unpack time.  Device spans (``shard_program``) are
+fenced with ``torch.cuda.synchronize`` by their call site, only while a
+tracer is active.
 
-    def __enter__(self):
-        return self
+Invariant 12: tracing never changes pair sets.
+"""
+from repro_torch.obs.metrics import Counter, Gauge, Histogram, \
+    MetricsRegistry
+from repro_torch.obs.report import TraceReport
+from repro_torch.obs.schema import (SCHEMA_VERSION, STATS_KINDS, pack_stats,
+                                    unpack_stats)
+from repro_torch.obs.trace import (NOOP_SPAN, SpanRecord, Tracer, activate,
+                                   current_tracer, span, write_chrome)
 
-    def __exit__(self, *exc):
-        return False
-
-    def set(self, **attrs) -> None:
-        pass
-
-
-NOOP_SPAN = _NoopSpan()
-
-
-def span(name: str, /, **attrs) -> _NoopSpan:
-    """A disabled span: a context manager that records nothing (``name``
-    is positional-only, as in the reference, so ``name`` may also be an
-    attribute)."""
-    return NOOP_SPAN
+__all__ = [
+    "span", "Tracer", "activate", "current_tracer", "SpanRecord",
+    "NOOP_SPAN", "write_chrome",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "TraceReport", "pack_stats", "unpack_stats", "SCHEMA_VERSION",
+    "STATS_KINDS",
+]

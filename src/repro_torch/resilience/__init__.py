@@ -13,7 +13,8 @@
                   ``autosize_caps``.
   * faults        the deterministic ``FaultPlan`` injection harness the
                   kill/resume tests drive, ``flaky_chunks``, ``micro_caps``,
-                  and ``ChaosPlan`` for the serving layer (ROADMAP M9).
+                  and ``ChaosPlan`` for the serving layer
+                  (``repro_torch.serve``).
 """
 from repro_torch.resilience.checkpoint import StreamCheckpoint, \
     resume_stream

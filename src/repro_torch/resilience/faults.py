@@ -20,10 +20,11 @@ together they cover every durability seam the checkpoint protocol has:
 The SERVING layer generalizes the same idea past checkpoint labels:
 ``ChaosPlan`` injects latency spikes, worker stalls, and matcher errors
 at exact micro-batch indices inside ``ResolutionService``'s batch-apply
-path (the service is ROADMAP M9).  The service consults the plan BEFORE any state mutation, so an
-injected error fails only the batch that hit it — the chaos property
-tests sweep injection schedules against every ``queue_policy`` and
-assert no future ever hangs or silently disappears (DESIGN.md §13).
+path (``repro_torch.serve``).  The service consults the plan BEFORE any
+state mutation, so an injected error fails only the batch that hit it —
+the chaos property tests sweep injection schedules against every
+``queue_policy`` and assert no future ever hangs or silently disappears
+(DESIGN.md §13).
 
 Overflow-forcing micro-caps are just configuration — build them with
 ``micro_caps``.  Injected crashes raise ``InjectedFault`` so tests can

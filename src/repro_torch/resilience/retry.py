@@ -102,8 +102,10 @@ def run_with_recovery(call: Callable, cfg):
     ``CapacityOverflowError`` under policy "raise" (immediately) or "retry"
     (after ``cfg.retry_limit`` fruitless rounds).
 
-    Every ladder rung runs inside an ``attempt`` span (a no-op until
-    tracing is ported, ROADMAP M10)."""
+    Under an active tracer every ladder rung runs inside an ``attempt``
+    child span (attempt index, the caps it ran under, whether it
+    overflowed), and retries/overflow events land on the tracer's
+    counters — the DESIGN.md §12 view of the recovery ladder."""
 
     def _call(c, attempt: int):
         sp = OBS.span("attempt", attempt=attempt,
@@ -111,7 +113,14 @@ def run_with_recovery(call: Callable, cfg):
                       pair_cap=getattr(c, "pair_cap", 0) or 0)
         with sp:
             o = call(c, attempt)
-            sp.set(overflowed=_overflowed(o))
+            if sp.enabled:
+                over = _overflowed(o)
+                sp.set(overflowed=over)
+                m = OBS.current_tracer().metrics
+                if over:
+                    m.counter("overflow_events").inc()
+                if attempt > 0:
+                    m.counter("retries").inc()
         return o
 
     out = _call(cfg, 0)

@@ -44,6 +44,7 @@ store, and the union rides on ``StreamResult.passes``.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 from typing import FrozenSet, Iterable, Optional, Set, Tuple
 
@@ -121,7 +122,9 @@ class StreamResult:
     ``blocking.load`` / ``blocking.cand_count`` report the elementwise MAX
     over chunks, while the overflow counters aggregate additively.
     ``stream`` carries the streaming telemetry; per-pass results keep
-    their own.  ``trace`` stays None until tracing is ported (M10)."""
+    their own.  ``trace`` is the ``repro_torch.obs.TraceReport`` of a run
+    under ``ERConfig.trace=True``; per-pass results share the owner's
+    tracer and carry none of their own."""
     blocking: BlockingResult
     matches: FrozenSet[Pair]
     stream: StreamStats
@@ -395,9 +398,10 @@ def _stream_pass_body(raw: ChunkStore, cfg: ERConfig, spec,
             plan, degen = _chunk_plan(cfg, variant, gplan, dev, padded,
                                       ranks, r)
             if csp.enabled:
-                # tracing is M10: the port's spans are never enabled
                 csp.set(natives=n_nat, carry=n_carry,
                         degenerate=bool(degen))
+                OBS.current_tracer().metrics.counter(
+                    "carry_entities").inc(n_carry)
 
             before = cache.stats.snapshot()
             po, run_cfg, rt, esc = RZ.run_with_recovery(
@@ -452,7 +456,9 @@ def _stream_pass_body(raw: ChunkStore, cfg: ERConfig, spec,
                 # commit protocol (checkpoint module doc): pair spool,
                 # then seam halo + manifest — the manifest write is the
                 # commit point
-                with OBS.span("checkpoint_commit", chunk=ci):
+                t0 = time.perf_counter()
+                sp = OBS.span("checkpoint_commit", chunk=ci)
+                with sp:
                     ckpt.spool_chunk(label, ci, po.blocked, po.matched)
                     if fault is not None:
                         fault.before_commit(label, ci)
@@ -470,6 +476,10 @@ def _stream_pass_body(raw: ChunkStore, cfg: ERConfig, spec,
                         device_bytes=int(device_bytes),
                         load_max=[int(x) for x in load_max],
                         cand_max=[int(x) for x in cand_max])
+                if sp.enabled:
+                    OBS.current_tracer().metrics.histogram(
+                        "checkpoint_commit_ms").observe(
+                            1e3 * (time.perf_counter() - t0))
                 if fault is not None:
                     fault.after_commit(label, ci)
 
@@ -560,8 +570,8 @@ def _finalize(res: StreamResult, nbytes: int,
 
 
 def _refuse_unported(cfg: ERConfig, mesh) -> None:
-    """The facade's refusals (``trace`` is M10, ``shard_map`` M11), plus
-    a device mesh, which only the shard_map runner (M11) would use."""
+    """The facade's refusal of ``runner="shard_map"`` (ROADMAP M11), plus
+    a device mesh, which only that runner would use."""
     F._refuse_unported(cfg)
     if mesh is not None:
         raise NotImplementedError(
@@ -599,9 +609,27 @@ def resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
     The union of per-chunk pair sets is bit-identical to a monolithic
     ``resolve(all_chunks, cfg)`` — provided capacities don't truncate.
     Returns a ``StreamResult``; with ``cfg.passes`` the top level holds the
-    multi-pass union and ``result.passes`` the per-pass results."""
+    multi-pass union and ``result.passes`` the per-pass results.  Under
+    ``cfg.trace`` the result also carries a ``repro_torch.obs``
+    ``TraceReport`` (root ``stream`` span over ingest / per-pass sort,
+    merge, chunk and checkpoint-commit child spans — DESIGN.md §12)."""
     _refuse_unported(cfg, mesh)
     device = resolve_device(device)
+    return F.owned_trace(
+        cfg, "stream", dict(variant=cfg.variant, runner=cfg.runner,
+                            window=cfg.window),
+        lambda: _resolve_stream(chunks, cfg, chunk_size=chunk_size,
+                                spool_dir=spool_dir,
+                                checkpoint_dir=checkpoint_dir,
+                                fault_plan=fault_plan, device=device))
+
+
+def _resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
+                    chunk_size: Optional[int], spool_dir: Optional[str],
+                    checkpoint_dir: Optional[str], fault_plan,
+                    device) -> StreamResult:
+    """``resolve_stream`` minus the owner-tracer wrapper (the body runs
+    inside the ambient ``stream`` span when tracing is on)."""
     if checkpoint_dir is not None:
         from repro_torch.resilience.checkpoint import StreamCheckpoint
         ckpt = StreamCheckpoint.open(checkpoint_dir, cfg, chunk_size)
@@ -747,10 +775,24 @@ def link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
     store — lhs first, because its maximum eid fixes the id-space offset
     rhs entities are shifted by, exactly like ``linkage.tag_sources``.
     Pairs come back untagged as (lhs_eid, rhs_eid) in each source's
-    original id space.  Everything else matches ``resolve_stream``."""
+    original id space.  Everything else matches ``resolve_stream``,
+    including the ``cfg.trace`` TraceReport."""
     cfg = cfg.with_(linkage=True)
     _refuse_unported(cfg, mesh)
     device = resolve_device(device)
+    return F.owned_trace(
+        cfg, "stream", dict(variant=cfg.variant, runner=cfg.runner,
+                            linkage=True),
+        lambda: _link_stream(lhs_chunks, rhs_chunks, cfg,
+                             chunk_size=chunk_size, spool_dir=spool_dir,
+                             device=device))
+
+
+def _link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
+                 cfg: ERConfig, *, chunk_size: Optional[int],
+                 spool_dir: Optional[str], device) -> StreamResult:
+    """``link_stream`` minus the owner-tracer wrapper (``cfg`` arrives with
+    ``linkage`` already set)."""
     store = ChunkStore(spool_dir, prefix="raw")
     max_eid = -1
 

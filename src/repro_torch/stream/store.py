@@ -49,7 +49,9 @@ def disk_arrays(ents: dict) -> Dict[str, np.ndarray]:
                    for k, v in ents["payload"].items()})
 
 
-def _host_col(name: str, a: np.ndarray) -> np.ndarray:
+def host_column(name: str, a: np.ndarray) -> np.ndarray:
+    """One host column in the port's dtype: a ``UINT32_FIELDS`` column held
+    as uint32 (the reference's form) viewed as int32; others as they are."""
     return a.view(np.int32) if name in UINT32_FIELDS and \
         a.dtype == np.uint32 else a
 
@@ -60,7 +62,7 @@ def host_entities(z) -> dict:
     n = len(_PAYLOAD_PREFIX)
     return {
         "key": z["key"], "eid": z["eid"], "valid": z["valid"],
-        "payload": {k[n:]: _host_col(k[n:], z[k])
+        "payload": {k[n:]: host_column(k[n:], z[k])
                     for k in z.files if k.startswith(_PAYLOAD_PREFIX)},
     }
 
@@ -200,7 +202,7 @@ class ChunkStore:
         if self._mem[i] is not None:
             return self._mem[i]["payload"][name]
         with np.load(self._paths[i], allow_pickle=False) as z:
-            return _host_col(name, z[_PAYLOAD_PREFIX + name])
+            return host_column(name, z[_PAYLOAD_PREFIX + name])
 
     def payload_fields(self) -> tuple:
         """Sorted payload field names of the stored schema (empty before

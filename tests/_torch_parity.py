@@ -66,6 +66,45 @@ def assert_same_stream(ref, port) -> None:
         assert_same_stream(a, b)
 
 
+# ServeStats fields the reference's executable cache fills and the port
+# (no cache until ROADMAP M11) leaves at 0, and the two host-clock latencies
+SERVE_CACHE_FIELDS = ("steady_batches", "cache_hits", "cache_misses",
+                      "traces")
+SERVE_CLOCK_FIELDS = ("p50_ms", "p95_ms")
+RESULT_EDIT_FIELDS = ("new_pairs", "retired_pairs", "new_matches",
+                      "retired_matches", "pair_ids", "batched", "degraded")
+
+
+def _assert_same_serve_stats(ref, port) -> None:
+    for f in port._fields:
+        a, b = getattr(ref, f), getattr(port, f)
+        if f in SERVE_CACHE_FIELDS:
+            assert b == 0, f"{f}: {b} (no cache in the port)"
+        elif f not in SERVE_CLOCK_FIELDS:
+            assert a == b, f"stats.{f}: {a} vs {b}"
+
+
+def assert_same_serve(ref, port, ref_res=None, port_res=None) -> None:
+    """A reference and a port ``ResolutionService``: the same served
+    blocked and matched sets (packed arrays bit-identical, dtype
+    included), and every ``ServeStats`` field equal but the four cache
+    fields (0 in the port) and the latencies.  With the two services'
+    ``IncrementalResult``s of one request: the same edits, pair ids, batch
+    width and degraded flag, and their stats compared the same way."""
+    import numpy as np
+    for f in ("packed_pairs", "packed_matches"):
+        a, b = getattr(ref, f), getattr(port, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), \
+            f"{f}: {a.size} vs {b.size}"
+    _assert_same_serve_stats(ref.stats(), port.stats())
+    if ref_res is not None:
+        for f in RESULT_EDIT_FIELDS:
+            a, b = getattr(ref_res, f), getattr(port_res, f)
+            assert a == b, f"result.{f}: {a} vs {b}" if f in (
+                "batched", "degraded") else f"result.{f} differs"
+        _assert_same_serve_stats(ref_res.stats, port_res.stats)
+
+
 def port_ents(ref_ents, device="cpu"):
     """The reference entity dict as the port's (tensors on ``device``)."""
     from repro_torch.core import entities as TE

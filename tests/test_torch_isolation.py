@@ -27,6 +27,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.core.keys, repro_torch.stream, repro_torch.perf\n"
         "import repro_torch.resilience.checkpoint\n"
         "import repro_torch.resilience.faults\n"
+        "import repro_torch.obs, repro_torch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")

@@ -185,6 +185,73 @@ def test_stream_kill_resume_on_card_equals_cpu(cuda, tmp_path, variant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["repsn", "jobsn"])
+def test_traced_resolve_on_card_equals_untraced(cuda, variant):
+    """Invariant 12 on the card: a traced resolve gives the untraced sets,
+    and its ``shard_program`` span (fenced by a synchronize) holds the K1
+    launch."""
+    ents = TE.synth_entities(np.random.default_rng(5), 3000, n_keys=300,
+                             text_len=16)
+    cfg = TA.ERConfig(window=10, num_shards=8, hops=7, variant=variant,
+                      band_engine="pallas", emit="pairs",
+                      matcher=paper_cascade())
+    plain = TA.resolve(ents, cfg, device=cuda)
+    ops.reset_launch_counts()
+    traced = TA.resolve(ents, cfg.with_(trace=True), device=cuda)
+    assert ops.launch_counts()["fused_band"] >= 1
+    assert traced.blocking.pairs == plain.blocking.pairs
+    assert traced.matches == plain.matches
+    names = [s.name for s in traced.trace.spans]
+    assert names.count("shard_program") == 1 and "collect" in names
+    assert traced.trace.registry["transfer_bytes"]["value"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["srp", "repsn"])
+def test_served_sequence_on_card_equals_cpu(cuda, variant):
+    """The same inserts and deletes served on the card and on the CPU: the
+    same served sets, edits and pair ids after every op, the card's
+    service on its worker thread, with K1 launched on every delta call."""
+    from repro_torch.core.entities import host_take, to_host
+    h = to_host(TE.synth_entities(np.random.default_rng(6), 2400,
+                                  n_keys=200, text_len=16))
+    cfg = TA.ERConfig(window=10, num_shards=8, hops=7, variant=variant,
+                      band_engine="pallas", emit="pairs",
+                      matcher=paper_cascade(), trace=True)
+    host = TA.serve(cfg, initial=host_take(h, slice(0, 2000)), start=False,
+                    device="cpu")
+    ops.reset_launch_counts()
+    card = TA.serve(cfg, initial=host_take(h, slice(0, 2000)), device=cuda)
+    try:
+        rng = np.random.default_rng(7)
+        live = np.arange(2400) < 2000
+        for i, lo in enumerate(range(2000, 2400, 100)):
+            batch = host_take(h, slice(lo, lo + 100))
+            got = card.submit_insert(batch).result(timeout=120)
+            want = host.resolve_incremental(batch)
+            live[lo:lo + 100] = True
+            assert (got.new_pairs, got.retired_pairs, got.new_matches,
+                    got.pair_ids) == (want.new_pairs, want.retired_pairs,
+                                      want.new_matches, want.pair_ids)
+            if i % 2:
+                rows = rng.choice(np.flatnonzero(live), 25, replace=False)
+                live[rows] = False
+                gone = h["eid"][rows]
+                got = card.submit_delete(gone).result(timeout=120)
+                want = host.delete(gone)
+                assert got.retired_pairs == want.retired_pairs
+                assert got.new_pairs == want.new_pairs
+            assert card.pairs == host.pairs and card.matches == host.matches
+        calls = card.stats().device_calls
+        spans = [s for s in card.trace_report().spans
+                 if s.name == "shard_program"]
+        assert calls == len(spans) > 0
+        assert ops.launch_counts()["fused_band"] == calls
+    finally:
+        card.close(timeout=120)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("f,words,m,window", [
     (33, 3, 1001, 9), (32, 8, 1000, 7), (32, 8, 700, 256),
     (64, 16, 700, 256), (32, 8, 1001, 9), (64, 16, 999, 9)],

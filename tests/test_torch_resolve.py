@@ -133,7 +133,6 @@ def test_legacy_partitioners_equal_reference(ents, partitioner):
 
 
 UNPORTED = [
-    ("trace", dict(trace=True), "M10"),
     ("shard_map", dict(runner="shard_map"), "M11"),
 ]
 

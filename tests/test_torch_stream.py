@@ -216,9 +216,6 @@ def test_stream_refuses_what_is_not_ported(host):
     with pytest.raises(NotImplementedError, match="M11"):
         TS.resolve_stream(_even(host, 350), cfg, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        TS.resolve_stream(_even(host, 350), cfg.with_(trace=True),
-                          device="cpu")
     with pytest.raises(NotImplementedError, match="M11"):
         TS.link_stream(_even(host, 350), _even(host, 350), cfg,
                        mesh=object(), device="cpu")
