@@ -35,9 +35,16 @@ Run from the root of a checkout.  Phases, one JSON line each:
               partitioner, pallas band engine, emit="pairs", the paper's
               cascade, auto caps — blocked pairs, zero overflow, kernel
               launches, and the matched set equal to the scan engine's;
-              one steady resolve traced (``ERConfig.trace``): its sets
-              equal the untraced run's, and its plan, shard-program,
-              collection and frozenset seconds come from its spans
+              through the executable cache (``repro_torch.perf``): the
+              cold resolve captures its shard program as a CUDA graph, the
+              steady one replays it (``PerfStats``: hits, no miss, no
+              trace; K1 counted once), and a profiled replay's kernel list
+              holds K1; one steady resolve traced (``ERConfig.trace``):
+              its sets equal the untraced run's, and its plan,
+              shard-program, collection and frozenset seconds come from
+              its spans; then the same resolve with ``jit_cache=False``
+              (eager): equal sets, its seconds and peak memory beside the
+              cached run's
   8. planned  the profile planners at full size: phase 7's corpus and
               config under pairrange and blocksplit (blocked and matched
               sets equal phase 7's), and the skewed Zipfian corpus of
@@ -65,7 +72,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
               runs, merge, chunk resolves (shard programs, collection),
               commits and the union from their spans, one shard program
               in each chunk span, K1 once per shard program and at each
-              shard shape; spooled bytes, peak memory
+              shard shape, steady (replayed) chunks; spooled bytes, peak
+              memory
  11. serve    online serving (``api.serve``) on the card: a traced
               service bootstrapped with 350,000 records of phase 7's
               generator and config, then 24 micro-batches of 200 inserts
@@ -76,15 +84,25 @@ Run from the root of a checkout.  Phases, one JSON line each:
               sets equal a fresh resolve of the live corpus, a snapshot
               restored on the card serves the same sets under the same
               pair ids; K1 held against its plain version at every delta
-              shape; bootstrap s, p50/p95 ms, inserts/s, peak memory
+              shape; a trace only where a batch brings a new shape bucket,
+              steady (replayed) batches, the delta calls' shard-program
+              ms; bootstrap s, p50/p95 ms, inserts/s, peak memory
+ 12. shard_map  the shard_map runner on a world-size-1 NCCL mesh on the
+              card: srp/repsn/jobsn x scan/pallas at n=100,000, r=1, equal
+              to the vmap runner and the sequential oracle, K1 on every
+              pallas shard program, the second call a graph replay
 
 Phases 4, 5 and 7-11 each set every launch count to 0 just before they
 drive their path and read the counts just after; each raises if a kernel
 of its path was not launched, phases 8 and 9 if K1 was not launched on
 every resolve (every pass of a multi-pass one), phase 10 if it was not
-launched on every chunk it resolved, and phase 11 if it was not launched
-on every delta call.  Then come the kernel
-table ``{"kernels": [...]}``,
+launched on every chunk it resolved, phase 11 if it was not launched
+on every delta call, and phase 12 if not on every pallas shard program.
+A replayed CUDA graph launches without the host: the cache adds the
+launches its capture recorded on every replay, so the counts hold for
+replays too.  Phases 7-12 start from an empty executable cache and raise
+if they reserved more than RESERVED_CAP bytes of device memory.  Then
+come each phase's seconds, the kernel table ``{"kernels": [...]}``,
 the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
 phase raises on failure, so the script exits non-zero and prints no result
 line.  It exits non-zero without a CUDA card, and where ``src/repro_torch``
@@ -147,6 +165,13 @@ ATTN_SHAPES = (("mixtral-8x22b", 48, 8192, 128, 4096, 0.0),
 ATTN_HEADS_CHECKED = 4      # the plain K4 materializes (heads, S, S) f32
 # cuda_ms's spin before each timed call: ~1 ms at the H100's 1.98 GHz
 SPIN_CYCLES = 2_000_000
+# no phase may reserve more device memory than this at its peak (the kept
+# graphs' pools included): the card's 80 GB less headroom
+RESERVED_CAP = 64e9
+# the delta calls' mean shard_program ms in phase serve of an earlier
+# version of this script, when every program ran eagerly (PERF.md §5);
+# a constant, printed beside this run's readings, never measured here
+SERVE_PROGRAM_MS_EAGER_EARLIER = 12.6
 
 
 def emit(obj) -> None:
@@ -879,8 +904,9 @@ def phase_parity():
 
 
 def _device_busy(fn):
-    """(seconds of CUDA kernel time, top kernels) of ``fn`` under
-    torch.profiler; (None, []) when the profiler records no device time."""
+    """(seconds of CUDA kernel time, top kernels, {kernel name: calls}) of
+    ``fn`` under torch.profiler; (None, [], {}) when the profiler records
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -891,10 +917,11 @@ def _device_busy(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        return None, []
+        return None, [], {}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return busy_us / 1e6, [[e.key[:80], e.count, e.self_device_time_total
-                            / 1e6] for e in top]
+                            / 1e6] for e in top], \
+        {e.key: e.count for e in kernels}
 
 
 def _span_seconds(report):
@@ -910,9 +937,11 @@ def _breakdown(ents, cfg):
     (fenced by a synchronize), the ``collect`` span (host collection into
     packed pairs) and the ``attempt`` span's own time (the public
     frozensets, ``PackedOutcome.to_outcome``); plus the device's busy time
-    over one more shard program (torch.profiler).  Returns (record, the
-    traced result)."""
+    over one more shard program (torch.profiler), which must be a replay
+    of the resolve's cached graph (one hit, no miss, no trace) whose
+    kernel list holds K1 once.  Returns (record, the traced result)."""
     from repro_torch import api
+    from repro_torch.perf import executable_cache
     from repro_torch.resilience.retry import autosize_caps
     res, traced_s = wall(lambda: api.resolve(ents, cfg.with_(trace=True),
                                              device="cuda"))
@@ -920,13 +949,25 @@ def _breakdown(ents, cfg):
     runner = api.VmapRunner(R, device="cuda")
     plan = api.plan_shards(ents, cfg, R)
     run_cfg, _ = autosize_caps(cfg, plan=plan)
-    busy_s, top = _device_busy(lambda: runner.run_raw(ents, plan, run_cfg))
+    before = _k1_launches()
+    stats = executable_cache().stats
+    since = stats.snapshot()
+    busy_s, top, counts = _device_busy(
+        lambda: runner.run_raw(ents, plan, run_cfg))
+    if stats.delta(since) != (1, 0, 0):
+        raise AssertionError("the profiled shard program was no replay: "
+                             f"(hits, misses, traces) {stats.delta(since)}")
+    if _k1_launches() - before != 1:
+        raise AssertionError("the profiled shard program launched K1 "
+                             f"{_k1_launches() - before} times")
+    k1_profiled = sum(n for k, n in counts.items() if "fused_band" in k)
     return {"traced_s": traced_s, "plan_s": total["plan"],
             "device_program_s": total["shard_program"],
             "host_collect_packed_s": total["collect"],
             "frozensets_s": own["attempt"], "resolve_self_s": own["resolve"],
             "span_coverage": res.trace.coverage(),
-            "device_kernel_busy_s": busy_s, "top_kernels_s": top}, res
+            "device_kernel_busy_s": busy_s, "top_kernels_s": top,
+            "replay_fused_band_kernels": k1_profiled}, res
 
 
 def _dedup_times(blocked):
@@ -944,7 +985,41 @@ def _dedup_times(blocked):
             "dedup_unique_packed_s": time.perf_counter() - t0}
 
 
+def _gb_cap(label):
+    """Raise when the phase's peak reserved device memory passed
+    RESERVED_CAP; returns (max_memory_allocated, max_memory_reserved)."""
+    import torch
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    if peak[1] > RESERVED_CAP:
+        raise AssertionError(f"{label}: {peak[1]} bytes reserved at peak, "
+                             f"above {RESERVED_CAP}")
+    return peak
+
+
+def _fresh_cache():
+    """The executable cache emptied (its graphs' pool returned to the
+    card) and the peak memory statistics reset: a phase's start."""
+    import torch
+    from repro_torch.perf import executable_cache
+    executable_cache().clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _perf(res):
+    p = res.perf
+    return {"cache_hits": p.cache_hits, "cache_misses": p.cache_misses,
+            "traces": p.traces, "cache_entries": p.cache_entries,
+            "steady_state": p.steady_state}
+
+
 def phase_main():
+    """The main path at full size through the executable cache: a cold
+    resolve (its shard program run, then captured as a CUDA graph), a
+    steady one (the graph replayed: hits, no trace), one traced; then the
+    same resolve with ``jit_cache=False`` (eager, cache emptied first):
+    equal sets, its seconds and memory beside the cached run's."""
     import numpy as np
     import torch
     from repro_torch import api
@@ -959,13 +1034,15 @@ def phase_main():
                                  band_engine="pallas"))
     run = lambda c=cfg: api.resolve(ents, c, device="cuda")
 
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_cache()
     ops.reset_launch_counts()
     res, cold_s = wall(run)
     launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     if launches["fused_band"] <= 0:
         raise AssertionError(f"main path launched no kernel: {launches}")
+    cold_perf = _perf(res)
+    if (cold_perf["cache_misses"], cold_perf["traces"]) != (1, 1):
+        raise AssertionError(f"main cold resolve: {cold_perf}")
 
     expected = sn.expected_pair_count(N_FULL, W)
     _zero_overflow(res, "main")
@@ -975,7 +1052,19 @@ def phase_main():
     if not res.matches:
         raise AssertionError("main path matched nothing")
 
-    steady_s = wall(run)[1]
+    before = ops.launch_counts()["fused_band"]
+    steady, steady_s = wall(run)
+    steady_perf = _perf(steady)
+    replay_launches = ops.launch_counts()["fused_band"] - before
+    if not steady_perf["steady_state"] or steady_perf["cache_hits"] < 1 or \
+            replay_launches != 1:
+        raise AssertionError(f"main steady resolve: {steady_perf}, K1 "
+                             f"launched {replay_launches} times")
+    if steady.blocking.pairs != res.blocking.pairs or \
+            steady.matches != res.matches:
+        raise AssertionError("main: the replayed resolve's sets differ")
+    del steady
+    cached_peak = _gb_cap("main (cached)")
     breakdown, traced = _breakdown(ents, cfg)
     # invariant 12: the traced resolve gives the untraced sets
     if traced.blocking.pairs != res.blocking.pairs or \
@@ -984,17 +1073,38 @@ def phase_main():
             f"traced resolve: blocked {len(traced.blocking.pairs)} vs "
             f"{len(res.blocking.pairs)}, matched {len(traced.matches)} vs "
             f"{len(res.matches)}")
+    if not _perf(traced)["steady_state"]:
+        raise AssertionError(f"main traced resolve: {_perf(traced)}")
+    if breakdown["replay_fused_band_kernels"] != 1:
+        raise AssertionError(f"main: {breakdown['replay_fused_band_kernels']}"
+                             f" fused_band kernels in the profiled replay: "
+                             f"{breakdown['top_kernels_s']}")
     del traced
     sets = _packed_sets(res)
     breakdown.update(_dedup_times(sets[0]))
+    launches["fused_band"] += replay_launches
 
-    scan, scan_s = wall(lambda: run(cfg.with_(band_engine="scan")))
+    # the same resolve eagerly, from an empty cache
+    _fresh_cache()
+    eager_cfg = cfg.with_(jit_cache=False)
+    eager, eager_cold_s = wall(lambda: run(eager_cfg))
+    eager_steady_s = wall(lambda: run(eager_cfg))[1]
+    eager_peak = _gb_cap("main (jit_cache=False)")
+    if eager.blocking.pairs != res.blocking.pairs or \
+            eager.matches != res.matches:
+        raise AssertionError("main: the eager resolve's sets differ from "
+                             "the cached one's")
+    eager_perf = _perf(eager)
+    del eager
+
+    scan, scan_s = wall(lambda: run(eager_cfg.with_(band_engine="scan")))
     if scan.matches != res.matches or scan.blocking.pairs != \
             res.blocking.pairs:
         raise AssertionError(
             f"scan vs pallas: matched {len(scan.matches)} vs "
             f"{len(res.matches)}, blocked {len(scan.blocking.pairs)} vs "
             f"{len(res.blocking.pairs)}")
+    del scan
     rec = {"phase": "main", "n": N_FULL, "n_keys": N_KEYS, "w": W, "r": R,
            "hops": HOPS, "variant": "repsn", "band_engine": "pallas",
            "emit": "pairs", "reduced": [],
@@ -1011,8 +1121,18 @@ def phase_main():
            "traced_steady_s": breakdown["traced_s"],
            "traced_equals_untraced": True, "breakdown": breakdown,
            "blocked_pairs_per_s": len(res.blocking.pairs) / steady_s,
-           "max_memory_allocated": peak,
-           "scan_s": scan_s, "scan_matched_equal": True}
+           "cache": {"cold_perf": cold_perf, "steady_perf": steady_perf,
+                     "replay_k1_launches": replay_launches,
+                     "max_memory_allocated": cached_peak[0],
+                     "max_memory_reserved": cached_peak[1]},
+           "eager": {"jit_cache": False, "cold_s": eager_cold_s,
+                     "steady_s": eager_steady_s, "perf": eager_perf,
+                     "sets_equal_cached": True,
+                     "max_memory_allocated": eager_peak[0],
+                     "max_memory_reserved": eager_peak[1]},
+           "max_memory_allocated": cached_peak[0],
+           "scan_s": scan_s, "scan_matched_equal": True,
+           "scan_jit_cache": False}
     emit(rec)
     return rec, ents, sets
 
@@ -1061,14 +1181,18 @@ def _oracle_pool(workers):
 
 
 def _planned_run(ents, cfg, label):
-    """One corpus resolved under one profile planner: the plan first (its
-    shard shape), then a cold resolve and a steady one, traced and taken
-    apart by its spans (``_breakdown``).  Returns (record, packed blocked,
+    """One corpus resolved under one profile planner, in the cache the
+    phase's earlier runs left (its graph budget evicts their graphs before
+    this run's warm-up): the plan first (its shard shape), then a cold
+    resolve (captured) and a steady one (replayed), traced and taken apart
+    by its spans (``_breakdown``).  Returns (record, packed blocked,
     packed matched)."""
     import numpy as np
     from repro_torch import api
+    from repro_torch.perf import executable_cache
     plan = api.plan_shards(ents, cfg, R)
     res, cold_s = _counted_resolve(ents, cfg, label)
+    graph_bytes = executable_cache().graph_bytes("cuda")
     _zero_overflow(res, label)
     blocked, matched = _packed_sets(res)
     bal = res.balance
@@ -1088,7 +1212,8 @@ def _planned_run(ents, cfg, label):
            "imbalance_planned": bal.imbalance_planned,
            "imbalance_realized": bal.imbalance_realized,
            "blocked": int(blocked.size), "matched": int(matched.size),
-           "cold_s": cold_s, "traced_steady_s": breakdown["traced_s"],
+           "cold_s": cold_s, "graph_bytes": graph_bytes,
+           "traced_steady_s": breakdown["traced_s"],
            "device_program_s": breakdown["device_program_s"],
            "device_kernel_busy_s": breakdown["device_kernel_busy_s"],
            "breakdown": breakdown}
@@ -1181,7 +1306,10 @@ def phase_planned(main_rec, main_ents, main_sets):
     from repro_torch.core import sn
     from repro_torch.data import zipf_entities
     from repro_torch.kernels import ops
+    from repro_torch.perf import executable_cache
 
+    _fresh_cache()
+    evictions = executable_cache().stats.evictions
     ops.reset_launch_counts()
     zipf, zipf_s = wall(lambda: zipf_entities(0, N_FULL, **ZIPF,
                                               device="cuda"))
@@ -1212,8 +1340,10 @@ def phase_planned(main_rec, main_ents, main_sets):
         del blocked, matched
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    peak = _gb_cap("planned")
+    evictions = executable_cache().stats.evictions - evictions
     del zipf, oracle
-    torch.cuda.empty_cache()
+    _fresh_cache()
 
     # K1 at each planned shard shape (after the counts were read)
     k1 = {}
@@ -1226,6 +1356,8 @@ def phase_planned(main_rec, main_ents, main_sets):
            "reduced": [], "zipf": dict(ZIPF, seed=0),
            "zipf_make_s": zipf_s, "zipf_oracle_wait_s": oracle_wait_s,
            "expected_blocked": expected, "launches": launches,
+           "cache_evictions": evictions,
+           "max_memory_allocated": peak[0], "max_memory_reserved": peak[1],
            "main": {k: main_rec[k] for k in ("rows_per_shard", "cold_s",
                                              "steady_s")}
            | {k: main_rec["breakdown"][k] for k in ("device_program_s",
@@ -1249,6 +1381,7 @@ def phase_quality():
     from repro_torch.data import labeled_corpus
     from repro_torch.kernels import ops
 
+    _fresh_cache()
     tc, make_s = wall(lambda: labeled_corpus(1, N_FULL, **RECALL,
                                              device="cuda"))
     base = api.ERConfig(window=W_FIXED, num_shards=R, hops=HOPS,
@@ -1295,6 +1428,7 @@ def phase_quality():
             del res
         torch.cuda.synchronize()
         launches = ops.launch_counts()
+        peak = _gb_cap("quality")
         oracles, oracle_wait_s = wall(lambda: [j.result() for j in jobs])
 
     _assert_equal("quality adaptive vs adaptive_sn_pairs",
@@ -1320,10 +1454,11 @@ def phase_quality():
            "windows": {"fixed": W_FIXED, "base": W_BASE, "max": W_MAX,
                        "prune_threshold": PRUNE},
            "corpus_make_s": make_s, "oracle_wait_s": oracle_wait_s,
-           "launches": launches, "runs": runs}
+           "launches": launches, "runs": runs,
+           "max_memory_allocated": peak[0], "max_memory_reserved": peak[1]}
     emit(rec)
     del tc
-    torch.cuda.empty_cache()
+    _fresh_cache()
     return rec
 
 
@@ -1432,14 +1567,16 @@ def phase_stream(main_rec, main_sets):
     run = lambda **kw: stream.resolve_stream(
         chunks(), cfg, chunk_size=STREAM_CHUNK, device="cuda", **kw)
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_cache()
     n_runs = N_FULL // STREAM_INPUT
     ops.reset_launch_counts()
     with _Recorded() as seen:
         res, stream_s = wall(run)
     launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak, peak_reserved = _gb_cap("stream")
+    if not res.stream.steady_chunks > 0:
+        raise AssertionError(f"stream: {res.stream.steady_chunks} steady "
+                             f"chunks of {n_chunks}")
     stages = _stream_stages("stream", res.trace, launches["fused_band"],
                             n_chunks, seen, n_runs)
     shapes = seen.k1_shapes
@@ -1451,6 +1588,9 @@ def phase_stream(main_rec, main_sets):
     ckpt = ROOT / "build" / "stream_checkpoint"
     shutil.rmtree(ckpt, ignore_errors=True)
     kill = api.FaultPlan(crash_before_commit=2)
+    # the killed run starts from an empty cache, as the stream did, so the
+    # resumed run's cache counters equal the stream's
+    _fresh_cache()
     ops.reset_launch_counts()
     with _Recorded() as killed_seen:
         (_, killed), killed_s = wall(lambda: _traced(
@@ -1466,6 +1606,7 @@ def phase_stream(main_rec, main_sets):
             lambda: api.resume(str(ckpt), cfg=cfg, device="cuda"),
             "resume"))
     resume_launches = ops.launch_counts()["fused_band"]
+    peak_reserved = max(peak_reserved, _gb_cap("stream checkpointed")[1])
     # the resume redoes the torn chunk and the ones after it; its sorted
     # runs were committed before the kill
     resume_stages = _stream_stages(
@@ -1497,6 +1638,7 @@ def phase_stream(main_rec, main_sets):
            "stream_s": stream_s, "main_steady_s": main_rec["steady_s"],
            "stages": stages, "k1_at_chunk_shapes": k1,
            "max_memory_allocated": peak,
+           "max_memory_reserved": peak_reserved,
            "main_max_memory_allocated": main_rec["max_memory_allocated"],
            "checkpoint": {"kill": "crash_before_commit=2",
                           "killed_s": killed_s, "resume_s": resume_s,
@@ -1506,7 +1648,7 @@ def phase_stream(main_rec, main_sets):
                           "killed_stages": killed_stages,
                           "resume_stages": resume_stages}}
     emit(rec)
-    torch.cuda.empty_cache()
+    _fresh_cache()
     return rec
 
 
@@ -1564,8 +1706,7 @@ def phase_serve(main_rec):
     cfg = api.ERConfig(**_cfg_kw(variant="repsn", runner="vmap",
                                  partitioner="balanced",
                                  band_engine="pallas", trace=True))
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_cache()
     ops.reset_launch_counts()
     with _Recorded() as seen:
         svc, bootstrap_s = wall(lambda: api.serve(
@@ -1577,6 +1718,9 @@ def phase_serve(main_rec):
             prev = (svc.packed_pairs, svc.packed_matches)
             op_s = {"insert": [], "delete": []}
             n_ops = 0
+            # (traces, distinct delta shapes) after every batch: a trace
+            # only where a batch brought a shape bucket not seen before
+            growth = [(svc.stats().traces, len(svc.stats().shapes))]
 
             def apply(kind, arg):
                 nonlocal prev, n_ops
@@ -1591,6 +1735,7 @@ def phase_serve(main_rec):
                 op_s[kind].append(time.perf_counter() - t0)
                 prev = _check_edit(f"serve op {n_ops} ({kind})", svc, res,
                                    prev)
+                growth.append((res.stats.traces, len(res.stats.shapes)))
                 n_ops += 1
 
             for op in range(SERVE_OPS):
@@ -1605,7 +1750,7 @@ def phase_serve(main_rec):
                     live[gone] = False
             torch.cuda.synchronize()
             launches = ops.launch_counts()
-            peak = torch.cuda.max_memory_allocated()
+            peak, peak_reserved = _gb_cap("serve")
             st = svc.stats()
             report = svc.trace_report()
         finally:
@@ -1618,6 +1763,13 @@ def phase_serve(main_rec):
     if st.batches != n_ops + 1 or st.failure is not None or \
             st.degraded_batches or st.live_entities != int(live.sum()):
         raise AssertionError(f"serve: stats {st}")
+    if any(t != k for t, k in growth) or st.traces != st.cache_misses or \
+            not st.steady_batches > 0 or not st.cache_hits > 0:
+        raise AssertionError(f"serve: (traces, shapes) after each batch "
+                             f"{growth}; stats {st}")
+    # the delta calls' shard programs (the bootstrap's first call aside),
+    # each a graph replay once its shape was captured
+    delta_ms = [p.dur * 1e3 for p in programs[1:]]
 
     # the served sets against a fresh resolve of the live corpus
     alive = E.host_take(host, np.flatnonzero(live))
@@ -1668,8 +1820,18 @@ def phase_serve(main_rec):
            "insert_op_s": op_s["insert"], "delete_op_s": op_s["delete"],
            "inserts_per_s": inserted / sum(op_s["insert"]),
            "max_memory_allocated": peak,
+           "max_memory_reserved": peak_reserved,
            "main_max_memory_allocated": main_rec["max_memory_allocated"],
            "launches": launches, "device_calls": st.device_calls,
+           "cache": {"steady_batches": st.steady_batches,
+                     "cache_hits": st.cache_hits,
+                     "cache_misses": st.cache_misses, "traces": st.traces,
+                     "traces_and_shapes_per_batch": growth},
+           "delta_program_ms": {
+               "mean": statistics.mean(delta_ms),
+               "median": statistics.median(delta_ms),
+               "calls": len(delta_ms),
+               "eager_mean_earlier_run": SERVE_PROGRAM_MS_EAGER_EARLIER},
            "shapes": [list(x) for x in st.shapes],
            "rows_per_shard": sorted({p.attrs["rows_per_shard"]
                                         for p in programs}),
@@ -1682,6 +1844,97 @@ def phase_serve(main_rec):
            "fresh_resolve_s": fresh_s, "snapshot_s": snapshot_s,
            "restore_s": restore_s, "fresh_equal": True,
            "restored_equal": True}
+    emit(rec)
+    _fresh_cache()
+    return rec
+
+
+def phase_shard_map():
+    """The shard_map runner on the card: a world-size-1 NCCL mesh (a
+    process group on an in-process store), every variant x band engine at
+    phase parity's n with r = 1 — blocked and matched sets equal to
+    ``VmapRunner(1)``'s and to the sequential oracle's, zero overflow, K1
+    launched on every pallas shard program, and a second call that is a
+    cache hit (its graph, NCCL collectives inside, replayed); the group is
+    destroyed at the end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import entities as E
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh_compat
+    from repro_torch.perf import executable_cache
+
+    ents = E.synth_entities(np.random.default_rng(1), N_PARITY,
+                            n_keys=N_KEYS, dup_frac=0.2, text_len=16)
+    seq, seq_s = wall(lambda: api.resolve(
+        ents, api.ERConfig(**_cfg_kw(variant="repsn", runner="sequential",
+                                     num_shards=1, hops=1)),
+        device="cuda"))
+    oracle = _packed_sets(seq)
+    del seq
+    _fresh_cache()
+    mesh = make_mesh_compat((1,), ("data",), device="cuda")
+    rows, launches = [], 0
+    try:
+        backend = dist.get_backend(mesh.group)
+        if backend != "nccl":
+            raise AssertionError(f"shard_map: a {backend} group on the card")
+        for variant in ("srp", "repsn", "jobsn"):
+            for engine in ("scan", "pallas"):
+                label = f"shard_map {variant}/{engine}"
+                cfg = api.ERConfig(**_cfg_kw(
+                    variant=variant, runner="shard_map", num_shards=1,
+                    hops=1, band_engine=engine))
+                vm = _packed_sets(api.resolve(
+                    ents, cfg.with_(runner="vmap"), device="cuda"))
+                calls = []
+                for _ in range(2):
+                    before = _k1_launches()
+                    res, secs = wall(lambda: api.resolve(
+                        ents, cfg, mesh=mesh, device="cuda"))
+                    calls.append((res, secs, _k1_launches() - before))
+                for res, _, k1 in calls:
+                    _zero_overflow(res, label)
+                    got = _packed_sets(res)
+                    for what, want in (("vmap", vm), ("oracle", oracle)):
+                        _assert_equal(f"{label} blocked vs {what}", got[0],
+                                      want[0])
+                    for what, want in (("vmap", vm), ("oracle", oracle)):
+                        _assert_equal(f"{label} matched vs {what}", got[1],
+                                      want[1])
+                    if engine == "pallas" and k1 < 1:
+                        raise AssertionError(f"{label}: K1 launched {k1} "
+                                             f"times")
+                    launches += k1
+                cold, hot = (_perf(c[0]) for c in calls)
+                if (cold["cache_misses"], cold["traces"]) != (1, 1) or \
+                        not hot["steady_state"]:
+                    raise AssertionError(f"{label}: cold {cold}, second "
+                                         f"{hot}")
+                rows.append({"variant": variant, "engine": engine,
+                             "blocked": int(got[0].size),
+                             "matched": int(got[1].size),
+                             "cold_s": calls[0][1], "steady_s": calls[1][1],
+                             "k1_launches": [c[2] for c in calls],
+                             "cold_perf": cold, "steady_perf": hot})
+                del calls, res
+        peak = _gb_cap("shard_map")
+    finally:
+        executable_cache().clear()
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("shard_map: the process group outlived the "
+                             "phase")
+    rec = {"phase": "shard_map", "n": N_PARITY, "world_size": 1,
+           "backend": backend, "mesh": mesh.shape, "w": W,
+           "reduced": ["n 1.4M -> 100,000 (phase parity's corpus): the "
+                       "script's time limit"],
+           "sequential_s": seq_s, "runs": rows,
+           "launches": {"fused_band": launches},
+           "equal": True, "graph_replayed_with_nccl": True,
+           "max_memory_allocated": peak[0], "max_memory_reserved": peak[1]}
     emit(rec)
     torch.cuda.empty_cache()
     return rec
@@ -1708,27 +1961,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    dev = phase_device()
-    phase_build()
-    recs = phase_kernel()
-    bands = phase_bands(recs)
-    attention = phase_attention()
-    phase_parity()
-    main_rec, main_ents, main_sets = phase_main()
-    planned = phase_planned(main_rec, main_ents, main_sets)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    dev = timed("device", phase_device)
+    timed("build", phase_build)
+    recs = timed("kernel", phase_kernel)
+    bands = timed("bands", phase_bands, recs)
+    attention = timed("attention", phase_attention)
+    timed("parity", phase_parity)
+    main_rec, main_ents, main_sets = timed("main", phase_main)
+    planned = timed("planned", phase_planned, main_rec, main_ents,
+                    main_sets)
     del main_ents
-    quality = phase_quality()
-    streamed = phase_stream(main_rec, main_sets)
+    quality = timed("quality", phase_quality)
+    streamed = timed("stream", phase_stream, main_rec, main_sets)
     del main_sets
-    served = phase_serve(main_rec)
+    served = timed("serve", phase_serve, main_rec)
+    sharded = timed("shard_map", phase_shard_map)
+    emit({"phase_seconds": seconds})
     # launches on each kernel's path: K1 on the resolve paths (main,
     # planned, quality, stream and its checkpointed run, serve's delta
-    # calls), K2 and K3 on the entry point's bands, K4 on its attention
+    # calls, the shard_map runner), replays of cached shard programs
+    # included; K2 and K3 on the entry point's bands, K4 on its attention
     launches = {"fused_band": sum(rec[k]["fused_band"] for rec, k in (
                     (main_rec, "kernel_launches"), (planned, "launches"),
                     (quality, "launches"), (streamed, "launches"),
                     (streamed["checkpoint"], "launches"),
-                    (served, "launches"))),
+                    (served, "launches"), (sharded, "launches"))),
                 "banded_sim": bands["launches"]["banded_sim"],
                 "jaccard_band": bands["launches"]["jaccard_band"],
                 "local_attn": attention["launches"]["local_attn"]}

@@ -22,16 +22,20 @@ counterpart of the same name:
                admission control
   obs/         tracing + metrics: spans, counters, histograms, the
                ``TraceReport`` and its Chrome export
-  perf/        the executable-cache seam (counters 0; the cache is M11)
+  perf/        the executable cache: CUDA graphs of the shard programs
+  launch/      meshes (process groups) for the shard_map runner
 
-Differences of form, not of result: the shard axis the reference vmaps is
-an explicit leading dim ``r`` on every tensor of the shard program, the
-named-axis collectives become ops over that dim, and bit-packed signatures
-travel as int32 bit views of the reference's uint32 words.
+Differences of form, not of result: the shard axis the reference maps is
+an explicit leading dim on every tensor of the shard program (r shards
+under the vmap runner, one per rank under the shard_map runner), the
+named-axis collectives become ops over that dim or ``torch.distributed``
+calls (``core/collectives.py``), a cached executable is a CUDA graph, and
+bit-packed signatures travel as int32 bit views of the reference's uint32
+words.
 
 Entry points (``api.resolve``, ``api.link``, ``api.resume``,
 ``api.serve``, ``stream.resolve_stream``, ``stream.link_stream``,
-``api.VmapRunner``) run on the CUDA device unless the caller passes
+``api.VmapRunner``, ``api.ShardMapRunner``) run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 This package imports neither ``jax`` nor ``repro``.
 """

@@ -12,7 +12,9 @@ Runs on the CUDA card unless ``device="cpu"`` is passed.  Under
 ``ERConfig(passes=...)`` ``resolve`` returns a ``MultiPassResult``;
 ``resume`` continues a checkpointed ``repro_torch.stream`` run; ``serve``
 starts a ``ResolutionService`` (``repro_torch.serve``);
-``ERConfig(trace=True)`` attaches a ``TraceReport`` (``repro_torch.obs``).
+``ERConfig(trace=True)`` attaches a ``TraceReport`` (``repro_torch.obs``);
+``ERConfig(runner="shard_map")`` runs one shard per rank of a process
+group (``ShardMapRunner``, ``repro_torch.launch``).
 """
 # repro_torch.obs is a leaf (stdlib/numpy only at import), so the eager
 # import is cycle-safe — unlike serve/resilience, which resolve lazily below
@@ -31,8 +33,8 @@ from repro_torch.api.results import (BalanceMetrics, BlockingResult,
                                      packed_to_frozenset, pairs_from_band,
                                      unpack_pairs)
 from repro_torch.api.runners import (PackedOutcome, Runner, RunnerOutcome,
-                                     SequentialRunner, VmapRunner,
-                                     shard_input)
+                                     SequentialRunner, ShardMapRunner,
+                                     VmapRunner, shard_input)
 from repro_torch.api.variants import (available_variants, get_variant,
                                       register_variant)
 from repro_torch.balance import (KeyProfile, ShardPlan,
@@ -73,7 +75,7 @@ __all__ = [
     "packed_pairs_from_part", "pack_pairs", "unpack_pairs",
     "packed_to_frozenset",
     "Runner", "RunnerOutcome", "PackedOutcome",
-    "SequentialRunner", "VmapRunner", "shard_input",
+    "SequentialRunner", "VmapRunner", "ShardMapRunner", "shard_input",
     "register_variant", "get_variant", "available_variants",
     "register_band_engine", "get_band_engine", "available_band_engines",
     "KeyProfile", "ShardPlan", "profile_keys", "plan_shards",

@@ -100,7 +100,8 @@ class ERConfig:
                    capacities, device-side pair emission and the overflow
                    ladder, as in the reference (None caps auto-size)
       runner       "sequential" (host oracle) | "vmap" (r shards on one
-                   device, as an explicit shard dim); "shard_map" is M11
+                   device, as an explicit shard dim) | "shard_map" (one
+                   shard per rank of a ``torch.distributed`` process group)
       num_shards, partitioner (legacy "balanced" | "range" | "sample",
                    the planners "uniform" | "blocksplit" | "pairrange", or
                    a registered planner), linkage, compute_metrics
@@ -116,8 +117,13 @@ class ERConfig:
                    Excluded from ``static_fingerprint``
       prune_policy, prune_threshold
                    evidence pruning, as in the reference
-      band_interpret, jit_cache
-                   no effect (no Pallas interpreter, no executable cache)
+      band_interpret
+                   no effect (no Pallas interpreter)
+      jit_cache    route the device runners' shard programs (and the
+                   sequential scorer) through the ``repro_torch.perf``
+                   executable cache: captured once as a CUDA graph on the
+                   card and replayed; built once and run eagerly on the
+                   CPU.  False runs every program eagerly
     """
     window: int = 10
     variant: str = "repsn"
@@ -259,7 +265,7 @@ class ERConfig:
 
     def static_fingerprint(self) -> tuple:
         """Hashable key of every field that shapes the shard program (the
-        reference's executable-cache key; kept for the cache of M11).
+        reference's executable-cache key, and the port's).
         Host-side fields — runner, num_shards, partitioner,
         compute_metrics, jit_cache, passes, on_overflow, retry_limit,
         trace — are excluded."""

@@ -14,6 +14,10 @@ per-entity windows.  ``resume`` continues a checkpointed stream
 (``repro_torch.stream``); ``serve`` starts an online incremental service
 (``repro_torch.serve``).  ``cfg.trace`` attaches a ``TraceReport``.
 ``device=None`` runs on the CUDA card and raises without one.
+``runner="shard_map"`` runs one shard per rank of ``mesh`` (a
+``launch.Mesh``; None: the default process group, started at world size
+1 if there is none).  ``ERResult.perf`` is the executable cache's delta
+over the call.
 """
 from __future__ import annotations
 
@@ -28,30 +32,26 @@ from repro_torch.api.config import ERConfig
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
                                      ERResult, MultiPassResult, PerfStats,
                                      compute_metrics)
-from repro_torch.api.runners import Runner, SequentialRunner, VmapRunner
+from repro_torch.api.runners import (Runner, SequentialRunner,
+                                     ShardMapRunner, VmapRunner)
 from repro_torch.core import entities as E
 from repro_torch.core import keys as K
 from repro_torch.core import sn
 from repro_torch.device import resolve_device
+from repro_torch.perf import cache as PC
 from repro_torch.resilience import retry as RZ
 
 
-def _refuse_unported(cfg: ERConfig) -> None:
-    """Features of the reference that the port does not have yet raise,
-    naming their ROADMAP item — never silently something else."""
-    if cfg.runner == "shard_map":
-        raise NotImplementedError(
-            "runner='shard_map' is not ported to repro_torch yet "
-            "(ROADMAP M11)")
-
-
-def make_runner(cfg: ERConfig, *, device=None) -> Runner:
-    """Instantiate the runner named by ``cfg.runner``."""
+def make_runner(cfg: ERConfig, *, mesh=None, axis: str = "data",
+                device=None) -> Runner:
+    """Instantiate the runner named by ``cfg.runner`` (``mesh``/``axis``
+    only matter for the shard_map runner)."""
     if cfg.runner == "sequential":
         return SequentialRunner(num_shards=cfg.num_shards)
     if cfg.runner == "vmap":
         return VmapRunner(num_shards=cfg.num_shards, device=device)
-    _refuse_unported(cfg)
+    if cfg.runner == "shard_map":
+        return ShardMapRunner(mesh=mesh, axis=axis, device=device)
     raise ValueError(f"unknown runner {cfg.runner!r}")
 
 
@@ -161,14 +161,17 @@ def owned_trace(cfg: ERConfig, root: str, attrs: dict, fn):
     return attach_trace(res, tracer)
 
 
-def resolve(ents: dict, cfg: ERConfig, *, bounds=None, device=None):
+def resolve(ents: dict, cfg: ERConfig, *, bounds=None, mesh=None,
+            axis: str = "data", device=None):
     """Run the configured ER pipeline over one entity set (a port entity
     dict, on any device; it is moved to ``device``).
 
     ``bounds``: explicit partition boundaries ((r-1,) int32) or a
     ``ShardPlan``; planned from ``cfg.partitioner`` when omitted.
-    ``device``: None = the CUDA card (raises without one); pass "cpu" to
-    run on the CPU.  The sequential runner always runs on the host.
+    ``mesh``/``axis`` only matter for the shard_map runner (default: the
+    default process group on a 1-D mesh).  ``device``: None = the CUDA
+    card (raises without one); pass "cpu" to run on the CPU.  The
+    sequential runner always runs on the host.
 
     Returns an ``ERResult`` — or, when ``cfg.passes`` selects multi-pass
     blocking, a ``MultiPassResult`` holding the per-pass ERResults plus
@@ -178,21 +181,23 @@ def resolve(ents: dict, cfg: ERConfig, *, bounds=None, device=None):
     spans to that outer trace instead (multi-pass passes, stream
     chunks)."""
     device = resolve_device(device)
-    _refuse_unported(cfg)
     return owned_trace(
         cfg, "resolve", dict(variant=cfg.variant, runner=cfg.runner,
                              window=cfg.window),
-        lambda: _resolve(ents, cfg, bounds=bounds, device=device))
+        lambda: _resolve(ents, cfg, bounds=bounds, mesh=mesh, axis=axis,
+                         device=device))
 
 
-def _resolve(ents: dict, cfg: ERConfig, *, bounds, device):
+def _resolve(ents: dict, cfg: ERConfig, *, bounds, mesh, axis: str,
+             device):
     """``resolve`` minus trace ownership (the body every caller shares)."""
     ents = E.to_device(ents, device)
     if cfg.passes:
-        return _resolve_multipass(ents, cfg, bounds=bounds, device=device)
+        return _resolve_multipass(ents, cfg, bounds=bounds, mesh=mesh,
+                                  axis=axis, device=device)
     if cfg.window_policy == "adaptive":
         ents, cfg = _adaptive_rewrite(ents, cfg)
-    runner = make_runner(cfg, device=device)
+    runner = make_runner(cfg, mesh=mesh, axis=axis, device=device)
     n_valid = int(ents["valid"].sum())
     with OBS.span("plan", partitioner=cfg.partitioner, n=n_valid):
         if bounds is None:
@@ -214,6 +219,8 @@ def _resolve(ents: dict, cfg: ERConfig, *, bounds, device):
                     f"bounds define {plan.num_shards} partitions but only "
                     f"{n_valid} valid entities exist; use fewer partitions")
         cfg, auto_caps = RZ.autosize_caps(cfg, plan=plan)
+    cache = PC.executable_cache()
+    before = cache.stats.snapshot()
 
     def _attempt(c: ERConfig, attempt: int):
         # retries lift the plan's exact cap_link (the overflow disproved
@@ -225,6 +232,9 @@ def _resolve(ents: dict, cfg: ERConfig, *, bounds, device):
     with OBS.span("execute", runner=runner.name, shards=runner.shards):
         out, run_cfg, retries, escalations = \
             RZ.run_with_recovery(_attempt, cfg)
+    dh, dm, dt = cache.stats.delta(before)
+    perf = PerfStats(cache_hits=dh, cache_misses=dm, traces=dt,
+                     cache_entries=len(cache))
     resilience = RZ.ResilienceStats(
         policy=cfg.on_overflow, retries=retries, escalations=escalations,
         cand_cap=run_cfg.cand_cap or 0, pair_cap=run_cfg.pair_cap or 0,
@@ -257,10 +267,7 @@ def _resolve(ents: dict, cfg: ERConfig, *, bounds, device):
                                 _total_comparisons(ents, cfg)),
                 balance=balance, resilience=resilience)
     return ERResult(blocking=blocking, matches=out.matched, metrics=metrics,
-                    balance=balance,
-                    perf=PerfStats(cache_hits=0, cache_misses=0, traces=0,
-                                   cache_entries=0),
-                    resilience=resilience)
+                    balance=balance, perf=perf, resilience=resilience)
 
 
 def _rekeyed(ents: dict, spec) -> dict:
@@ -286,8 +293,8 @@ def union_blocking(results, cfg, runner_name: str) -> BlockingResult:
         pruned=sum(r.blocking.pruned for r in results))
 
 
-def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds,
-                       device) -> MultiPassResult:
+def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds, mesh,
+                       axis: str, device) -> MultiPassResult:
     """One full single-pass resolve per SortKeySpec + the pair-set union.
 
     Explicit ``bounds`` are rejected: each pass sorts by a different
@@ -306,7 +313,7 @@ def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds,
     for spec in cfg.passes:
         with OBS.span("pass", name=spec.name, kind=spec.kind):
             pents = _rekeyed(ents, spec)
-            res = resolve(pents, sub, device=device)
+            res = resolve(pents, sub, mesh=mesh, axis=axis, device=device)
             if cfg.compute_metrics:
                 with OBS.span("metrics"):
                     oracle = _host_oracle(pents, sub)
@@ -350,17 +357,19 @@ def _untag(res, offset: int):
                     matches=frozenset(LK.untag_pairs(res.matches, offset)))
 
 
-def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, device=None):
+def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, mesh=None,
+         axis: str = "data", device=None):
     """Dual-source linkage R x S: blocked/matched pairs are CROSS-SOURCE
     only, returned as (lhs_eid, rhs_eid) in each source's own id space.
-    Both sources must share one payload schema.  ``device`` as in
-    ``resolve``.  Returns an ``ERResult`` (or ``MultiPassResult`` under
+    Both sources must share one payload schema.  ``mesh``, ``axis`` and
+    ``device`` as in ``resolve``.  Returns an ``ERResult`` (or ``MultiPassResult`` under
     ``cfg.passes``, with union and per-pass pairs all mapped back)."""
     device = resolve_device(device)
     cfg = cfg.with_(linkage=True)
     ents, offset = LK.tag_sources(E.to_device(lhs, device),
                                   E.to_device(rhs, device))
-    res = resolve(ents, cfg, bounds=bounds, device=device)
+    res = resolve(ents, cfg, bounds=bounds, mesh=mesh, axis=axis,
+                  device=device)
     if isinstance(res, MultiPassResult):
         res = _replace(res, passes=tuple(_untag(r, offset)
                                          for r in res.passes))
@@ -406,7 +415,7 @@ def resume(checkpoint_dir: str, *, chunks=None, cfg: ERConfig = None,
     when the original run used a non-default matcher (it is validated
     against the stored fingerprint).  ``chunks`` re-supplies the original
     deterministic chunk iterator and is required only when the run died
-    during ingest.  ``mesh`` must be None (M11); ``device`` as in
+    during ingest.  ``mesh``, ``axis`` and ``device`` as in
     ``resolve``."""
     from repro_torch.resilience.checkpoint import resume_stream
     return resume_stream(checkpoint_dir, chunks=chunks, cfg=cfg, mesh=mesh,

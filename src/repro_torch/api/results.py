@@ -156,15 +156,14 @@ class BalanceMetrics:
 
 @dataclass(frozen=True)
 class PerfStats:
-    """Execution-cache telemetry for one ``resolve``/``link`` call.  The
-    port has no executable cache yet (ROADMAP M11), so ``resolve`` reports
-    all zeros here.
+    """Execution-cache telemetry for one ``resolve``/``link`` call
+    (``repro_torch.perf``: on the card an executable is a captured CUDA
+    graph).
 
-    cache_hits      executables reused from the cache
-    cache_misses    executables built (== programs lowered) by this call
-    traces          jit traces actually performed (a healthy cache has
-                    traces == cache_misses; more means a keying bug let one
-                    executable see two shapes)
+    cache_hits      executables reused from the cache (graph replays)
+    cache_misses    executables built by this call
+    traces          first runs / graph captures actually performed (a
+                    healthy cache has traces == cache_misses)
     cache_entries   total executables resident after the call
     """
     cache_hits: int
@@ -176,8 +175,8 @@ class PerfStats:
     def steady_state(self) -> bool:
         """True when the call ran entirely from cached executables — at
         least one hit and no build/trace.  A bypassed cache (jit_cache=
-        False, legacy shims) reports all-zero counters and is NOT steady
-        state: it re-traced every call."""
+        False) reports all-zero counters and is NOT steady state: it ran
+        every program eagerly."""
         return self.cache_hits > 0 and self.traces == 0 and \
             self.cache_misses == 0
 

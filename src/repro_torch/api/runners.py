@@ -8,19 +8,29 @@
   * VmapRunner        one device, r shards on an explicit leading dim (the
                       reference vmaps a named axis; the collectives become
                       ops over that dim).  Answers to ``runner="vmap"``.
+  * ShardMapRunner    one shard per rank of a ``torch.distributed`` process
+                      group (a ``launch.Mesh``): the collectives are
+                      ``torch.distributed`` calls.  Answers to
+                      ``runner="shard_map"``.
 
-Both return a ``RunnerOutcome`` with identical semantics.  ``VmapRunner``
-also exposes ``run_raw``: the per-shard outputs (leading dim r) as tensors
-on its device, for benchmarks and invariant tests.
+All three return a ``RunnerOutcome`` with identical semantics.  The device
+runners also expose ``run_raw``: the per-shard outputs (leading dim r) as
+tensors on their device, for benchmarks and invariant tests.
 
-``bounds`` may be a raw (r-1,) boundary array or a ``ShardPlan``.  There is
-no executable cache yet (ROADMAP M11): PyTorch runs eagerly, so the facade
-reports all-zero ``PerfStats``.
+``bounds`` may be a raw (r-1,) boundary array or a ``ShardPlan``.
+
+Steady state: with ``cfg.jit_cache`` (the default) the device runners go
+through the ``repro_torch.perf`` executable cache — each (config statics,
+planner capacity, input shapes) combination is built once and, on the
+card, captured as a CUDA graph that later calls replay (boundary VALUES are
+graph inputs, so replanning never recaptures).  ``SequentialRunner._match``
+caches its chunk scorer the same way, padding the tail chunk so every chunk
+reuses one program.  ``jit_cache=False`` runs the shard program eagerly.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import FrozenSet, NamedTuple, Optional, Protocol, Tuple, \
+from typing import Any, FrozenSet, NamedTuple, Optional, Protocol, Tuple, \
     runtime_checkable
 
 import numpy as np
@@ -32,7 +42,9 @@ from repro_torch.api import results as RES
 from repro_torch.api.variants import get_variant
 from repro_torch.balance.planners import as_plan
 from repro_torch.core import entities as E
+from repro_torch.core.collectives import GroupAxis, gather_shards
 from repro_torch.device import resolve_device
+from repro_torch.perf import cache as PC
 
 Pair = Tuple[int, int]
 
@@ -56,6 +68,19 @@ def _apply_plan(ents: dict, bounds, r: int, cfg):
     cap_link = plan.cap_link if cfg.cap_factor <= 0 else None
     return ents, torch.as_tensor(np.asarray(plan.bounds, np.int32),
                                  device=dev), cap_link
+
+
+def _run_program(program, head: tuple, cap_link, args: tuple, cfg):
+    """``program(*args)`` through the executable cache under the key
+    ``head + (cfg statics, cap_link, input fingerprint)``, or eagerly when
+    ``cfg.jit_cache`` is off."""
+    if not cfg.jit_cache:
+        return program(*args)
+    call = PC.executable_cache().get_or_build(
+        head + (cfg.static_fingerprint(), cap_link,
+                PC.tree_fingerprint(args)),
+        lambda: program)
+    return call(*args)
 
 
 class RunnerOutcome(NamedTuple):
@@ -211,20 +236,25 @@ class VmapRunner:
     def run_raw(self, ents: dict, bounds, cfg) -> dict:
         """Execute the variant's shard program and return the per-shard
         output dict (tensors with leading dim r on the runner's device)
-        without host collection."""
+        without host collection.  Routed through the executable cache
+        unless ``cfg.jit_cache`` is off."""
         r = self.num_shards
         dev = resolve_device(self.device)
         variant = get_variant(cfg.variant)
         ents, b, cap_link = _apply_plan(E.to_device(ents, dev), bounds, r,
                                         cfg)
+
+        def program(st, bd):
+            return variant.shard_program(st, bd, r, cfg, cap_link=cap_link)
+
         with torch.inference_mode():
             stacked = shard_input(ents, r)
             rows = int(stacked["key"].shape[1])
             sp = OBS.span("shard_program", device=True, runner="vmap",
                           shards=r, rows_per_shard=rows)
             with sp:
-                out = variant.shard_program(stacked, b, r, cfg,
-                                            cap_link=cap_link)
+                out = _run_program(program, ("vmap", r, "sn"), cap_link,
+                                   (stacked, b), cfg)
                 if sp.enabled and dev.type == "cuda":
                     # kernels return before the card ran them: fence only
                     # when traced, so the untraced path is unchanged
@@ -237,6 +267,84 @@ class VmapRunner:
     def resolve_packed(self, ents: dict, bounds, cfg) -> PackedOutcome:
         return _device_outcome_packed(self.run_raw(ents, bounds, cfg), cfg,
                                       self.num_shards)
+
+
+@dataclass(frozen=True)
+class ShardMapRunner:
+    """One shard per rank of the process group of ``mesh`` (a
+    ``launch.Mesh``; None: the default group, started at world size 1 on
+    ``device`` if there is none), along mesh axis ``axis``.  As under
+    SPMD every rank calls the runner with the whole entity set, runs its
+    own shard's program and all-gathers the outputs, so ``run_raw``
+    returns tensors with a leading per-shard dim r on every rank, exactly
+    like VmapRunner.  ``device=None`` means the CUDA card (NCCL); pass
+    "cpu" for gloo.  A group of the other backend is refused.  On the card the cached program is captured as a CUDA
+    graph with its NCCL collectives inside, as the vmap runner's is."""
+    mesh: Any = None
+    axis: str = "data"
+    device: Optional[str] = None
+    name = "shard_map"
+
+    def __post_init__(self):
+        import torch.distributed as dist
+        if self.mesh is None:
+            from repro_torch.launch.mesh import make_mesh_compat
+            n = dist.get_world_size() if dist.is_initialized() else 1
+            object.__setattr__(self, "mesh", make_mesh_compat(
+                (n,), (self.axis,), device=resolve_device(self.device)))
+        # NCCL on the card, gloo on the CPU: a gloo group would carry the
+        # card's collectives through host memory
+        dev = torch.device(self.device or "cuda").type
+        want = "nccl" if dev == "cuda" else "gloo"
+        backend = str(dist.get_backend(self.mesh.group))
+        if want not in backend:
+            raise ValueError(f"the mesh's process group runs {backend}; a "
+                             f"shard_map runner on {dev} needs {want}")
+
+    @property
+    def shards(self) -> int:
+        """Number of shards == ranks on the mesh axis."""
+        return int(self.mesh.shape[self.axis])
+
+    def run_raw(self, ents: dict, bounds, cfg) -> dict:
+        """Execute this rank's shard program under the group's collectives
+        and return the all-gathered per-shard output dict (leading dim r,
+        exactly like ``VmapRunner.run_raw``); cached per (mesh, config
+        statics, shapes) unless ``cfg.jit_cache`` is off."""
+        dev = resolve_device(self.device)
+        axis = GroupAxis(self.mesh.group)
+        r = axis.size
+        variant = get_variant(cfg.variant)
+        ents, b, cap_link = _apply_plan(E.to_device(ents, dev), bounds, r,
+                                        cfg)
+
+        def program(local, bd):
+            out = variant.shard_program(local, bd, r, cfg,
+                                        cap_link=cap_link, axis=axis)
+            return PC.map_tensors(out,
+                                  lambda x: gather_shards(x[0], axis))
+
+        with torch.inference_mode():
+            stacked = shard_input(ents, r)
+            local = E.map_fields(stacked,
+                                 lambda x: x[axis.rank:axis.rank + 1])
+            rows = int(stacked["key"].shape[1])
+            sp = OBS.span("shard_program", device=True, runner="shard_map",
+                          shards=r, rows_per_shard=rows)
+            with sp:
+                out = _run_program(
+                    program, ("shard_map", self.axis, self.mesh), cap_link,
+                    (local, b), cfg)
+                if sp.enabled and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)   # see VmapRunner.run_raw
+        return out
+
+    def resolve(self, ents: dict, bounds, cfg) -> RunnerOutcome:
+        return self.resolve_packed(ents, bounds, cfg).to_outcome()
+
+    def resolve_packed(self, ents: dict, bounds, cfg) -> PackedOutcome:
+        return _device_outcome_packed(self.run_raw(ents, bounds, cfg), cfg,
+                                      self.shards)
 
 
 def _rows_of_pairs(ents_host: dict, blocked: np.ndarray):
@@ -331,7 +439,11 @@ class SequentialRunner:
     def _match(self, host: dict, blocked: np.ndarray, cfg) -> np.ndarray:
         """Score blocked pairs (packed uint64) with the cascade matcher in
         chunks (skip=False: identical accept/reject decisions, exact
-        scores).  Returns the matched subset, still packed."""
+        scores).  Returns the matched subset, still packed.
+
+        The chunk scorer goes through the executable cache once per
+        (matcher, chunk, payload schema); the tail chunk is padded to
+        ``match_chunk`` so every chunk reuses one program."""
         if blocked.size == 0:
             return blocked
         blocked = np.sort(blocked)          # == lexicographic (lo, hi) order
@@ -339,14 +451,29 @@ class SequentialRunner:
         payload = {k: torch.from_numpy(v)
                    for k, v in host["payload"].items()}
         matcher = cfg.matcher
-        keep = np.zeros(blocked.shape[0], bool)
         chunk = self.match_chunk
+
+        def program(pl, ia, ib):
+            pa = {k: v[ia] for k, v in pl.items()}
+            pb = {k: v[ib] for k, v in pl.items()}
+            score, _ = matcher.combined(pa, pb, skip=False)
+            return score >= matcher.threshold
+
+        if cfg.jit_cache:
+            scorer = PC.executable_cache().get_or_build(
+                ("seq_match", matcher, chunk, PC.tree_fingerprint(payload)),
+                lambda: program)
+        else:
+            scorer = program
+        keep = np.zeros(blocked.shape[0], bool)
         with torch.inference_mode():
             for s in range(0, blocked.shape[0], chunk):
-                ia = torch.from_numpy(ra[s:s + chunk])
-                ib = torch.from_numpy(rb[s:s + chunk])
-                pa = {k: v[ia] for k, v in payload.items()}
-                pb = {k: v[ib] for k, v in payload.items()}
-                score, _ = matcher.combined(pa, pb, skip=False)
-                keep[s:s + chunk] = (score >= matcher.threshold).numpy()
+                ia, ib = ra[s:s + chunk], rb[s:s + chunk]
+                ln = ia.shape[0]
+                if ln < chunk:              # pad the tail: one program
+                    ia = np.concatenate([ia, np.zeros(chunk - ln, ia.dtype)])
+                    ib = np.concatenate([ib, np.zeros(chunk - ln, ib.dtype)])
+                got = scorer(payload, torch.from_numpy(ia),
+                             torch.from_numpy(ib))
+                keep[s:s + ln] = got[:ln].numpy()
         return blocked[keep]

@@ -3,11 +3,15 @@
 
 Each variant owns three hooks:
 
-  * ``shard_program(ents, bounds, r, cfg, cap_link=None)``  the shard
-    program over stacked mapper shards (r, cap0, ...) — the shard dim is
-    explicit where the reference vmaps a named axis; returns per-shard
-    outputs with leading dim r: ``overflow``, ``load`` and one or more band
-    parts (``main``, optionally ``boundary``)
+  * ``shard_program(ents, bounds, r, cfg, cap_link=None, axis=None)``
+    the shard program over the local mapper shards (L, cap0, ...) of an
+    r-shard axis — the shard dim is explicit where the reference maps a
+    named axis, and ``axis`` (``core/collectives.py``) supplies its
+    collectives: None (``LocalAxis``) holds all r shards (L = r, the
+    vmap runner), a ``GroupAxis`` one shard per rank (L = 1, the
+    shard_map runner); returns per-shard outputs with leading dim L:
+    ``overflow``, ``load`` and one or more band parts (``main``,
+    optionally ``boundary``)
   * ``collect(out)``  host pair sets (blocked + matched) from the runner
     output, deduplicated across parts
   * ``sequential_pairs(keys, eids, bounds, w, part=None)``  the HOST oracle
@@ -28,6 +32,7 @@ from repro_torch.core import repsn as R
 from repro_torch.core import sn
 from repro_torch.core import srp as S
 from repro_torch.core import window as W
+from repro_torch.core.collectives import LocalAxis
 
 _REGISTRY: Dict[str, Type["VariantBase"]] = {}
 
@@ -67,10 +72,12 @@ class VariantBase:
     # -- device side ---------------------------------------------------------
 
     def shard_program(self, ents: dict, bounds, r: int, cfg,
-                      cap_link: int = None) -> dict:
-        """SRP shuffle + this variant's ``_windows`` step over the stacked
-        mapper shards.  ``cap_link`` is the planner-provided shuffle
-        capacity; None derives it from ``cfg.cap_factor``."""
+                      cap_link: int = None, axis=None) -> dict:
+        """SRP shuffle + this variant's ``_windows`` step over the local
+        mapper shards of ``axis`` (None: all r of them).  ``cap_link`` is
+        the planner-provided shuffle capacity; None derives it from
+        ``cfg.cap_factor``."""
+        axis = LocalAxis(r) if axis is None else axis
         cap0 = ents["key"].shape[-1]
         if cap_link is None:
             cap_link = cap0 if cfg.cap_factor <= 0 else \
@@ -81,12 +88,13 @@ class VariantBase:
                 f"shard, but window={cfg.window} exceeds the per-shard "
                 f"buffer of {r * cap_link} slots; reduce window or "
                 f"num_shards, raise cap_factor, or use runner='sequential'")
-        sorted_ents, overflow = S.srp_shard(ents, bounds, r, cap_link)
-        out = {"overflow": overflow, "load": S.local_load(sorted_ents)}
-        out.update(self._windows(sorted_ents, r, cfg))
+        sorted_ents, overflow = S.srp_shard(ents, bounds, r, cap_link, axis)
+        out = {"overflow": overflow,
+               "load": S.local_load(sorted_ents, axis)}
+        out.update(self._windows(sorted_ents, axis, cfg))
         return out
 
-    def _windows(self, sorted_ents: dict, r: int, cfg) -> dict:
+    def _windows(self, sorted_ents: dict, axis, cfg) -> dict:
         raise NotImplementedError
 
     def _band(self, e: dict, halo_len: int, mode: str, cfg) -> dict:
@@ -148,7 +156,7 @@ class SrpVariant(VariantBase):
 
     boundary_complete = False
 
-    def _windows(self, sorted_ents, r, cfg):
+    def _windows(self, sorted_ents, axis, cfg):
         return {"main": self._band(sorted_ents, 0, "all", cfg)}
 
     def sequential_pairs(self, keys, eids, bounds, w, part=None, weff=None):
@@ -174,8 +182,8 @@ class RepSNVariant(VariantBase):
 
     halo_slices = True
 
-    def _windows(self, sorted_ents, r, cfg):
-        combined, hl = R.repsn_combine(sorted_ents, cfg.window,
+    def _windows(self, sorted_ents, axis, cfg):
+        combined, hl = R.repsn_combine(sorted_ents, cfg.window, axis,
                                        hops=cfg.hops)
         return {"main": self._band(combined, hl, "native", cfg)}
 
@@ -188,7 +196,7 @@ class JobSNVariant(VariantBase):
     parts = ("main", "boundary")
     halo_slices = True
 
-    def _windows(self, sorted_ents, r, cfg):
-        group, hl = J.boundary_group(sorted_ents, cfg.window)
+    def _windows(self, sorted_ents, axis, cfg):
+        group, hl = J.boundary_group(sorted_ents, cfg.window, axis)
         return {"main": self._band(sorted_ents, 0, "all", cfg),
                 "boundary": self._band(group, hl, "cross", cfg)}

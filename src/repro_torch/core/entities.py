@@ -204,8 +204,12 @@ def slice_entities(ents, start, size: int) -> dict:
         raise ValueError(f"slice of {size} rows from {m}")
     lead = tuple(ents["key"].shape[:rd])
     dev = ents["key"].device
-    start = torch.as_tensor(start, dtype=torch.int64, device=dev) \
-        .expand(lead).clamp(0, m - size)
+    # an int start is a fill, not a host-to-device copy (which would
+    # synchronize, and a CUDA graph cannot capture that)
+    start = (torch.full(lead, start, dtype=torch.int64, device=dev)
+             if isinstance(start, int) else
+             torch.as_tensor(start, dtype=torch.int64, device=dev)
+             .expand(lead)).clamp(0, m - size)
     idx = start.unsqueeze(-1) + torch.arange(size, device=dev)
     return map_fields(ents, lambda a: take_rows(a, idx, rd))
 

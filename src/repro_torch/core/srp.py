@@ -7,13 +7,15 @@ mapper shards (r, cap0, ...):
   2. bucketize into a fixed-capacity (r, r*cap_link) buffer, ranked within
      each destination by a stable sort (capacity + overflow accounting, as
      in the reference)
-  3. the exchange: the reference's vmapped ``all_to_all`` is a transpose of
-     the (r_src, r_dst, cap_link, ...) buffer
+  3. the exchange: the reference's ``all_to_all`` over the shard axis,
+     supplied by the axis object (``core/collectives.py``): a transpose
+     of the (r_src, r_dst, cap_link, ...) buffer when all shards are
+     local, ``torch.distributed`` when each rank holds one
   4. reduce-side sort by (key, eid) -> globally range-sorted shards
 
-The reference's ``psum``/``all_gather`` over the named axis become a sum
-and a broadcast over dim 0; their per-shard copies are kept so stacked
-outputs have the reference's shapes.
+The reference's ``psum``/``all_gather`` of the overflow and load come from
+the same axis object; every shard keeps its copy, so outputs have the
+reference's per-shard shapes.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.core import entities as E
 from repro_torch.core import partition as P
+from repro_torch.core.collectives import LocalAxis
 
 
 def bucketize(ents: dict, dest: torch.Tensor, r: int,
@@ -63,20 +66,18 @@ def bucketize(ents: dict, dest: torch.Tensor, r: int,
     return bucketed, overflow
 
 
-def exchange(bucketed: dict, r: int) -> dict:
-    """The shuffle: shard t receives block t of every mapper s — a
-    transpose of the (r_src, r_dst, cap_link, ...) view."""
-    def a2a(x):
-        y = x.reshape((r, r, x.shape[1] // r) + tuple(x.shape[2:]))
-        return y.transpose(0, 1).reshape(x.shape)
-    return E.map_fields(bucketed, a2a)
+def exchange(bucketed: dict, axis) -> dict:
+    """The shuffle: shard t receives block t of every mapper s (one
+    ``all_to_all`` per field over ``axis``)."""
+    return E.map_fields(bucketed, axis.all_to_all)
 
 
-def srp_shard(ents: dict, bounds, r: int,
-              cap_link: int) -> Tuple[dict, torch.Tensor]:
-    """Full SRP over the stacked mapper shards: returns (sorted reduce
-    partitions (r, r*cap_link, ...), overflow (r,) — the global count in
-    every shard's slot, like the reference's psum).
+def srp_shard(ents: dict, bounds, r: int, cap_link: int,
+              axis=None) -> Tuple[dict, torch.Tensor]:
+    """Full SRP over the local mapper shards (L, cap0, ...) of an ``r``-
+    shard axis (None: all r local): returns (sorted reduce partitions
+    (L, r*cap_link, ...), overflow (L,) — the global count in every
+    shard's slot, the reference's psum).
 
     A ``_dest`` payload field (rank-granular ShardPlan routing) overrides
     the key->shard function; it is consumed map-side and stripped before
@@ -88,14 +89,14 @@ def srp_shard(ents: dict, bounds, r: int,
         ents = dict(ents)
         ents["payload"] = {k: v for k, v in ents["payload"].items()
                            if k != "_dest"}
+    axis = LocalAxis(r) if axis is None else axis
     buf, overflow = bucketize(ents, dest, r, cap_link)
-    recv = exchange(buf, r)
+    recv = exchange(buf, axis)
     sorted_ents = E.sort_entities(recv)
-    return sorted_ents, overflow.sum(dtype=torch.int32).expand(r)
+    return sorted_ents, axis.psum(overflow)
 
 
-def local_load(ents: dict) -> torch.Tensor:
-    """Per-shard valid counts, gathered to every shard: (r, r) (skew
+def local_load(ents: dict, axis) -> torch.Tensor:
+    """Per-shard valid counts, gathered to every shard: (L, r) (skew
     telemetry, paper §5.3)."""
-    nv = E.n_valid(ents)
-    return nv.unsqueeze(0).expand(nv.shape[0], nv.shape[0])
+    return axis.all_gather(E.n_valid(ents))

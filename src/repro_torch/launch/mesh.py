@@ -1,0 +1,98 @@
+"""Meshes for the shard_map runner (port of ``repro.launch.mesh``).
+
+The reference's mesh is a grid of JAX devices with named axes; its
+``ShardMapRunner`` puts one shard on each device of one axis.  Here a
+``Mesh`` is a ``torch.distributed`` process group with the name of its
+one axis: one shard per rank, and ``mesh.shape[axis]`` is the world size.
+
+``make_mesh_compat`` and ``make_host_mesh`` build it.  Where no default
+process group exists they start a world-size-1 group on an in-process
+``HashStore`` (no port, no environment variables): NCCL when the device is
+the CUDA card (``device=None``), gloo for ``device="cpu"``.  The
+shard_map runner refuses a group whose backend does not serve its device.  More shards need more processes: start
+them with a launcher (or ``torch.multiprocessing``), call
+``torch.distributed.init_process_group`` in each, and pass the group (or
+rely on the default one).  Call ``torch.distributed.destroy_process_group``
+when done, and clear the executable cache (``perf.executable_cache``),
+whose shard_map entries are keyed by the group.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Any, Dict, Tuple
+
+# a world-size-1 group's collectives never wait on another process; a
+# hang there is a fault, raised after this long
+GROUP_TIMEOUT = timedelta(seconds=60)
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A process group as a mesh: ``axis_names`` with their sizes
+    (``sizes``), at most one of them above 1 — one shard per rank.  Two
+    meshes of the same group and axes are equal (one cache entry)."""
+    group: Any
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """{axis name: size}, as the reference's ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def _default_group(size: int, device):
+    """The default process group, started at world size 1 on a HashStore
+    when none exists: NCCL on the CUDA card (``device=None``, as at every
+    entry point of the port), gloo for ``device="cpu"``."""
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    if not dist.is_initialized():
+        if size != 1:
+            raise ValueError(
+                f"a mesh of {size} shards needs {size} processes: start "
+                f"them and call torch.distributed.init_process_group in "
+                f"each before building the mesh")
+        dev = resolve_device(device)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1,
+            timeout=GROUP_TIMEOUT)
+    return dist.group.WORLD
+
+
+def make_mesh_compat(shape, axes, *, group=None, device=None) -> Mesh:
+    """A mesh of ``shape`` with axis names ``axes`` over ``group`` (None:
+    the default group, started at world size 1 if there is none; its
+    backend follows ``device``, None meaning the card).  The shape's product must be the group's
+    world size, with at most one axis above 1."""
+    import torch.distributed as dist
+    sizes = tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(sizes) != len(axes):
+        raise ValueError(f"shape {sizes} and axes {axes} differ in length")
+    if sum(s > 1 for s in sizes) > 1:
+        raise ValueError(f"mesh {dict(zip(axes, sizes))}: the port's meshes "
+                         f"have one axis of shards (one shard per rank)")
+    if group is None:
+        group = _default_group(math.prod(sizes), device)
+    world = dist.get_world_size(group)
+    if math.prod(sizes) != world:
+        raise ValueError(f"mesh {dict(zip(axes, sizes))} needs "
+                         f"{math.prod(sizes)} ranks, the group has {world}")
+    return Mesh(group=group, axis_names=axes, sizes=sizes)
+
+
+def make_host_mesh(model: int = 1, *, group=None, device=None) -> Mesh:
+    """A ("data", "model") mesh over every rank of ``group`` (None: the
+    default group, as ``make_mesh_compat``), ``model`` = 1."""
+    import torch.distributed as dist
+    if model != 1:
+        raise ValueError(f"model={model}: the port's meshes shard only "
+                         f"the data axis")
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    return make_mesh_compat((n, model), ("data", "model"), group=group,
+                            device=device)

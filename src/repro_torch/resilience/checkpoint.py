@@ -36,8 +36,8 @@ whole-run accumulation the checkpoint deliberately does not persist).
 Signatures are uint32 on disk, as the reference writes them; the store's
 ``disk_arrays`` / ``host_entities`` convert the port's int32 bit views at
 that boundary (``repro_torch.stream.store``).  The manifest's executable-
-cache counters (``steady``, ``hits``, ``misses``, ``traces``) are 0 in the
-port's own checkpoints until ROADMAP M11.
+cache counters (``steady``, ``hits``, ``misses``, ``traces``) are the
+port's cache's, metered per chunk as in the reference.
 """
 from __future__ import annotations
 
@@ -369,16 +369,16 @@ def resume_stream(checkpoint_dir: str, *, chunks: Optional[Iterable] = None,
     continues at the last committed chunk.  ``chunks`` must re-supply the
     original (deterministic) chunk iterator ONLY when the run died during
     ingest — after ingest the corpus is durable in the checkpoint and the
-    iterator is not consulted.  ``mesh`` must be None (the shard_map
-    runner is ROADMAP M11); ``device`` is where the remaining chunks are
-    sorted and resolved (None = the CUDA card).  Returns the same
+    iterator is not consulted.  ``mesh``/``axis`` select the process
+    group of the shard_map runner; ``device`` is where the remaining
+    chunks are sorted and resolved (None = the CUDA card).  Returns the same
     ``StreamResult`` an uninterrupted run would have returned, with a
     bit-identical pair union (invariant 11)."""
     from repro_torch.device import resolve_device
     from repro_torch.stream import resolver
     ckpt = StreamCheckpoint.load(checkpoint_dir)
     cfg = ckpt.resolve_config(cfg)
-    resolver._refuse_unported(cfg, mesh)
-    return resolver._resolve_checkpointed(chunks, cfg, ckpt,
+    return resolver._resolve_checkpointed(chunks, cfg, ckpt, mesh=mesh,
+                                          axis=axis,
                                           device=resolve_device(device),
                                           fault=None)

@@ -8,9 +8,11 @@ micro-batches (up to ``max_batch`` entities or ``max_wait_ms``), drives the
 the batch's ``IncrementalResult``.  Delta calls ride a shape-bucket grid
 and run on the service's ``device`` (the CUDA card unless ``"cpu"`` is
 passed), from the worker thread (or the watchdog's batch thread); each
-thread that runs a batch activates the service's tracer.  The port has no
-executable cache yet (ROADMAP M11), so ``ServeStats.steady_batches``,
-``cache_hits``, ``cache_misses`` and ``traces`` read 0.
+thread that runs a batch activates the service's tracer.  Because every
+delta call rides the shape-bucket grid, a steady request stream hits the
+``repro_torch.perf`` executable cache (on the card, CUDA graph replays):
+``ServeStats.steady_batches`` counts those batches, the analogue of the
+stream's ``steady_chunks``.
 
 The service maintains the CURRENT pair sets (not a monotone union): the
 **served** sets are exactly what a from-scratch ``api.resolve`` of the
@@ -73,7 +75,7 @@ class ServeStats(NamedTuple):
 
     ``steady_batches`` counts micro-batches served ENTIRELY from the
     executable cache (hits, zero builds/traces); it and the three cache
-    counters read 0 until the port has that cache (ROADMAP M11).
+    counters come from the ``repro_torch.perf`` executable cache.
     ``shapes`` lists the distinct (num_shards, shard_cap) delta-call
     buckets seen.  ``batch_fill`` is the mean coalesced batch size
     over ``max_batch``; ``p50_ms``/``p95_ms`` are submit-to-result

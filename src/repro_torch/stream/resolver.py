@@ -34,9 +34,9 @@ the pair union live on the host.
 
 **Steady state.**  Chunks share one shape (natives padded to ``chunk_size``
 + a w−1 halo prefix) and one normalized plan form, as in the reference.
-The port has no executable cache yet (ROADMAP M11): ``StreamStats``'
-``steady_chunks``, ``cache_hits``, ``cache_misses`` and ``traces`` read 0
-(``repro_torch.perf``); every other field is the reference's.
+After the first chunk every chunk hits the ``repro_torch.perf`` executable
+cache (``steady_chunks``; on the card its shard program is a CUDA graph
+replay), each chunk metered as in the reference.
 
 **Multi-pass.**  With ``cfg.passes`` the whole pipeline (sort → merge →
 chunked resolve) reruns per derived sort key over the SAME ingested chunk
@@ -87,10 +87,10 @@ class StreamStats:
     degenerate_chunks  chunks too small to plan r shards legally (n < r·w),
                        collapsed to one shard — correctness kept, balance
                        lost; a healthy stream has 0 (raise chunk_size)
-    steady_chunks      chunks served entirely from the executable cache;
-                       0 until the cache exists (ROADMAP M11)
-    cache_hits/cache_misses/traces   executable-cache deltas over the
-                       pass; 0 until M11
+    steady_chunks      chunks served entirely from the executable cache
+                       (hits > 0, zero builds/traces); after the first
+                       chunk every chunk should be steady
+    cache_hits/cache_misses/traces   executable-cache deltas over the pass
     spooled_bytes      bytes written to the disk spool (0 in-memory); the
                        top-level result counts raw chunks + sorted runs,
                        per-pass results only their own runs
@@ -569,16 +569,6 @@ def _finalize(res: StreamResult, nbytes: int,
         spooled_bytes=res.stream.spooled_bytes + raw_spool))
 
 
-def _refuse_unported(cfg: ERConfig, mesh) -> None:
-    """The facade's refusal of ``runner="shard_map"`` (ROADMAP M11), plus
-    a device mesh, which only that runner would use."""
-    F._refuse_unported(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the shard_map runner) is not ported to repro_torch yet "
-            "(ROADMAP M11)")
-
-
 def resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
                    chunk_size: Optional[int] = None, mesh=None,
                    axis: str = "data", spool_dir: Optional[str] = None,
@@ -592,10 +582,10 @@ def resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
     global sort.  ``chunk_size``: native rows resolved per device call
     (defaults to the largest ingested chunk); peak device residency is one
     (w−1 + chunk_size)-row window.  ``spool_dir``: directory for the host
-    spool (None keeps chunks in memory).  ``mesh`` must be None (the
-    shard_map runner is M11); ``axis`` is accepted for the reference's
-    signature.  ``device``: where chunks are sorted and resolved (None =
-    the CUDA card, raising without one; "cpu" runs on the CPU).
+    spool (None keeps chunks in memory).  ``mesh``/``axis`` select the
+    process group of the shard_map runner.  ``device``: where chunks are
+    sorted and resolved (None = the CUDA card, raising without one; "cpu"
+    runs on the CPU).
 
     ``checkpoint_dir`` makes the run DURABLE: progress commits
     crash-atomically after every ingested chunk and every resolved chunk,
@@ -613,7 +603,6 @@ def resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
     ``cfg.trace`` the result also carries a ``repro_torch.obs``
     ``TraceReport`` (root ``stream`` span over ingest / per-pass sort,
     merge, chunk and checkpoint-commit child spans — DESIGN.md §12)."""
-    _refuse_unported(cfg, mesh)
     device = resolve_device(device)
     return F.owned_trace(
         cfg, "stream", dict(variant=cfg.variant, runner=cfg.runner,
@@ -621,19 +610,21 @@ def resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
         lambda: _resolve_stream(chunks, cfg, chunk_size=chunk_size,
                                 spool_dir=spool_dir,
                                 checkpoint_dir=checkpoint_dir,
-                                fault_plan=fault_plan, device=device))
+                                fault_plan=fault_plan, mesh=mesh, axis=axis,
+                                device=device))
 
 
 def _resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
                     chunk_size: Optional[int], spool_dir: Optional[str],
-                    checkpoint_dir: Optional[str], fault_plan,
-                    device) -> StreamResult:
+                    checkpoint_dir: Optional[str], fault_plan, mesh,
+                    axis: str, device) -> StreamResult:
     """``resolve_stream`` minus the owner-tracer wrapper (the body runs
     inside the ambient ``stream`` span when tracing is on)."""
     if checkpoint_dir is not None:
         from repro_torch.resilience.checkpoint import StreamCheckpoint
         ckpt = StreamCheckpoint.open(checkpoint_dir, cfg, chunk_size)
-        return _resolve_checkpointed(chunks, cfg, ckpt, device=device,
+        return _resolve_checkpointed(chunks, cfg, ckpt, mesh=mesh,
+                                     axis=axis, device=device,
                                      fault=fault_plan)
     if fault_plan is not None:
         raise ValueError("fault_plan injects crashes at checkpoint commit "
@@ -641,8 +632,8 @@ def _resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
     with OBS.span("ingest"):
         raw, max_len, total, nbytes = _ingest(chunks, spool_dir)
     return _resolve_ingested(raw, max_len, total, nbytes, cfg,
-                             chunk_size=chunk_size, device=device,
-                             spool_dir=spool_dir)
+                             chunk_size=chunk_size, mesh=mesh, axis=axis,
+                             device=device, spool_dir=spool_dir)
 
 
 def _ingest_checkpointed(chunks: Iterable[dict], store: ChunkStore,
@@ -671,7 +662,8 @@ def _ingest_checkpointed(chunks: Iterable[dict], store: ChunkStore,
 
 
 def _resolve_checkpointed(chunks: Optional[Iterable[dict]], cfg: ERConfig,
-                          ckpt, *, device, fault) -> StreamResult:
+                          ckpt, *, mesh, axis: str, device,
+                          fault) -> StreamResult:
     """Drive one checkpointed run (fresh or resumed) to completion: finish
     ingest if the manifest says it never completed, then resolve with
     every pass fast-forwarding over its committed chunks."""
@@ -695,8 +687,8 @@ def _resolve_checkpointed(chunks: Optional[Iterable[dict]], cfg: ERConfig,
     res = _resolve_ingested(raw, ing["max_len"], ing["total"],
                             ing["nbytes"], cfg,
                             chunk_size=ckpt.manifest["chunk_size"],
-                            device=device, spool_dir=None,
-                            ckpt=ckpt, fault=fault)
+                            mesh=mesh, axis=axis, device=device,
+                            spool_dir=None, ckpt=ckpt, fault=fault)
     ckpt.mark_done()
     return res
 
@@ -719,14 +711,15 @@ def _total_stream_comparisons(raw: ChunkStore, total: int, cfg: ERConfig,
 
 
 def _resolve_ingested(raw: ChunkStore, max_len: int, total: int,
-                      nbytes: int, cfg: ERConfig, *, chunk_size, device,
-                      spool_dir, n_lhs: Optional[int] = None,
-                      ckpt=None, fault=None) -> StreamResult:
+                      nbytes: int, cfg: ERConfig, *, chunk_size, mesh,
+                      axis: str, device, spool_dir,
+                      n_lhs: Optional[int] = None, ckpt=None,
+                      fault=None) -> StreamResult:
     """The post-ingest half of ``resolve_stream`` (shared with
     ``link_stream``, which builds its own tagged store and passes its
     left-source entity count as ``n_lhs``; the checkpoint path passes
     ``ckpt``/``fault`` through to every pass)."""
-    runner = F.make_runner(cfg, device=device)
+    runner = F.make_runner(cfg, mesh=mesh, axis=axis, device=device)
     size = chunk_size if chunk_size is not None else max(max_len, 1)
     if size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {size}")
@@ -778,19 +771,19 @@ def link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
     original id space.  Everything else matches ``resolve_stream``,
     including the ``cfg.trace`` TraceReport."""
     cfg = cfg.with_(linkage=True)
-    _refuse_unported(cfg, mesh)
     device = resolve_device(device)
     return F.owned_trace(
         cfg, "stream", dict(variant=cfg.variant, runner=cfg.runner,
                             linkage=True),
         lambda: _link_stream(lhs_chunks, rhs_chunks, cfg,
                              chunk_size=chunk_size, spool_dir=spool_dir,
-                             device=device))
+                             mesh=mesh, axis=axis, device=device))
 
 
 def _link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
                  cfg: ERConfig, *, chunk_size: Optional[int],
-                 spool_dir: Optional[str], device) -> StreamResult:
+                 spool_dir: Optional[str], mesh, axis: str,
+                 device) -> StreamResult:
     """``link_stream`` minus the owner-tracer wrapper (``cfg`` arrives with
     ``linkage`` already set)."""
     store = ChunkStore(spool_dir, prefix="raw")
@@ -827,6 +820,6 @@ def _link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
                                              transform=tagger(1, offset))
     res = _resolve_ingested(store, max(len_l, len_r), total_l + total_r,
                             bytes_l + bytes_r, cfg, chunk_size=chunk_size,
-                            device=device, spool_dir=spool_dir,
-                            n_lhs=total_l)
+                            mesh=mesh, axis=axis, device=device,
+                            spool_dir=spool_dir, n_lhs=total_l)
     return _untag_stream(res, offset)

@@ -35,25 +35,25 @@ def assert_same_result(ref, port) -> None:
             assert a == b, f"{name}: {a} vs {b}"
 
 
-# StreamStats fields the reference's executable cache fills and the port
-# (no cache until ROADMAP M11) leaves at 0
-STREAM_CACHE_FIELDS = ("steady_chunks", "cache_hits", "cache_misses",
-                       "traces")
+def clear_caches() -> None:
+    """Empty both packages' executable caches, so that the same calls
+    meter the same hits, misses and traces in each."""
+    from repro.perf.cache import executable_cache as ref_cache
+    from repro_torch.perf import executable_cache as port_cache
+    ref_cache().clear()
+    port_cache().clear()
 
 
 def assert_same_stream(ref, port) -> None:
     """A reference and a port ``StreamResult``: the result contract above,
-    every ``StreamStats`` field equal except the four cache fields (0 in
-    the port), equal overflow-recovery stats and metrics, and the same per
-    pass."""
+    every ``StreamStats`` field equal (the executable-cache counters too,
+    for runs that began from equal cache states: ``clear_caches``), equal
+    overflow-recovery stats and metrics, and the same per pass."""
     import dataclasses
     assert_same_result(ref, port)
     for f in dataclasses.fields(port.stream):
         a, b = getattr(ref.stream, f.name), getattr(port.stream, f.name)
-        if f.name in STREAM_CACHE_FIELDS:
-            assert b == 0, f"{f.name}: {b} (no cache in the port)"
-        else:
-            assert a == b, f"stream.{f.name}: {a} vs {b}"
+        assert a == b, f"stream.{f.name}: {a} vs {b}"
     assert tuple(ref.resilience) == tuple(port.resilience)
     assert (ref.metrics is None) == (port.metrics is None)
     if ref.metrics is not None:
@@ -66,10 +66,7 @@ def assert_same_stream(ref, port) -> None:
         assert_same_stream(a, b)
 
 
-# ServeStats fields the reference's executable cache fills and the port
-# (no cache until ROADMAP M11) leaves at 0, and the two host-clock latencies
-SERVE_CACHE_FIELDS = ("steady_batches", "cache_hits", "cache_misses",
-                      "traces")
+# the two host-clock latencies of ServeStats
 SERVE_CLOCK_FIELDS = ("p50_ms", "p95_ms")
 RESULT_EDIT_FIELDS = ("new_pairs", "retired_pairs", "new_matches",
                       "retired_matches", "pair_ids", "batched", "degraded")
@@ -78,17 +75,16 @@ RESULT_EDIT_FIELDS = ("new_pairs", "retired_pairs", "new_matches",
 def _assert_same_serve_stats(ref, port) -> None:
     for f in port._fields:
         a, b = getattr(ref, f), getattr(port, f)
-        if f in SERVE_CACHE_FIELDS:
-            assert b == 0, f"{f}: {b} (no cache in the port)"
-        elif f not in SERVE_CLOCK_FIELDS:
+        if f not in SERVE_CLOCK_FIELDS:
             assert a == b, f"stats.{f}: {a} vs {b}"
 
 
 def assert_same_serve(ref, port, ref_res=None, port_res=None) -> None:
     """A reference and a port ``ResolutionService``: the same served
     blocked and matched sets (packed arrays bit-identical, dtype
-    included), and every ``ServeStats`` field equal but the four cache
-    fields (0 in the port) and the latencies.  With the two services'
+    included), and every ``ServeStats`` field equal but the latencies (the
+    executable-cache counters too, for services that began from equal
+    cache states: ``clear_caches``).  With the two services'
     ``IncrementalResult``s of one request: the same edits, pair ids, batch
     width and degraded flag, and their stats compared the same way."""
     import numpy as np
@@ -139,3 +135,22 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     return "cuda"
+
+
+@pytest.fixture(scope="module")
+def gloo_mesh():
+    """A world-size-1 gloo mesh for the port's shard_map runner, on an
+    in-process store; the group is destroyed after the module (unless one
+    existed before), and the port's cache, whose shard_map entries are
+    keyed by it, cleared."""
+    pytest.importorskip("torch")
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh_compat
+    from repro_torch.perf import executable_cache
+    started = not dist.is_initialized()
+    mesh = make_mesh_compat((1,), ("data",), device="cpu")
+    yield mesh
+    if started:
+        executable_cache().clear()
+        dist.destroy_process_group()

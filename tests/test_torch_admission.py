@@ -29,7 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import assert_same_serve, port_ents  # noqa: E402
+from _torch_parity import (assert_same_serve, clear_caches,  # noqa: E402
+                           port_ents)
 from repro import api as RA  # noqa: E402
 from repro.core import entities as E  # noqa: E402
 from repro.serve import AdmissionConfig as RefAdmission  # noqa: E402
@@ -480,6 +481,7 @@ def test_degraded_path_matches_reference(corpus):
     """The brownout path in step with the reference's: the same degraded
     edits and served sets after every op (blocked exact, matches carried
     forward), and the same exact sets after ``repair()``."""
+    clear_caches()
     ref = RA.serve(RA.ERConfig(**_kw()), start=False,
                    admission=RefAdmission(brownout_high=0.0,
                                           brownout_low=-1.0))

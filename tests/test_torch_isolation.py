@@ -28,6 +28,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.resilience.checkpoint\n"
         "import repro_torch.resilience.faults\n"
         "import repro_torch.obs, repro_torch.serve\n"
+        "import repro_torch.launch, repro_torch.launch.mesh\n"
+        "import repro_torch.perf.cache, repro_torch.core.collectives\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -75,6 +77,8 @@ def test_entry_points_default_to_cuda_and_raise_without_card():
         TA.link(_ents(), _ents(), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TA.VmapRunner(2).run_raw(_ents(), np.array([3], np.int32), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TA.ShardMapRunner()
     # the explicit CPU request runs
     res = TA.resolve(_ents(), cfg, device="cpu")
     assert res.blocking.pairs

@@ -251,6 +251,176 @@ def test_served_sequence_on_card_equals_cpu(cuda, variant):
         card.close(timeout=120)
 
 
+def _k1_per_program(variant):
+    """K1 launches in one shard program: JobSN bands its main part and its
+    boundary part."""
+    return 2 if variant == "jobsn" else 1
+
+
+def _small_case(seed, variant, **kw):
+    ents = TE.synth_entities(np.random.default_rng(seed), 3000, n_keys=300,
+                             text_len=16)
+    cfg = TA.ERConfig(window=10, num_shards=8, hops=7, variant=variant,
+                      band_engine="pallas", emit="pairs",
+                      matcher=paper_cascade(), **kw)
+    return ents, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["srp", "repsn", "jobsn"])
+def test_replayed_resolve_equals_eager(cuda, variant):
+    """A resolve replayed from its captured CUDA graph equals the same
+    resolve run eagerly (``jit_cache=False``); K1's count grows by its
+    launches in one program per replay; a replay's outputs survive the
+    next replay."""
+    from repro_torch.perf import executable_cache
+    executable_cache().clear()
+    ents, cfg = _small_case(8, variant)
+    eager = TA.resolve(ents, cfg.with_(jit_cache=False), device=cuda)
+    cold = TA.resolve(ents, cfg, device=cuda)
+    assert (cold.perf.cache_misses, cold.perf.traces) == (1, 1)
+    for _ in range(2):
+        before = ops.launch_counts()["fused_band"]
+        hot = TA.resolve(ents, cfg, device=cuda)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_band"] == \
+            before + _k1_per_program(variant)
+        assert hot.perf.steady_state
+        for res in (cold, hot):
+            assert res.blocking.pairs == eager.blocking.pairs
+            assert res.matches == eager.matches
+            assert res.blocking.cand_count == eager.blocking.cand_count
+    runner = TA.VmapRunner(8, device=cuda)
+    b = np.asarray(TA.default_bounds(ents, cfg, 8), np.int32)
+    runner.run_raw(ents, b, cfg)                 # the capture
+    first = runner.run_raw(ents, b, cfg)         # a replay
+    runner.run_raw(ents, b + 1, cfg)             # a replay, other bounds
+    want = runner.run_raw(ents, b, cfg.with_(jit_cache=False))
+    for f in ("mask_idx", "mask_n", "match_idx", "match_n"):
+        assert torch.equal(first["main"][f], want["main"][f]), f
+
+
+@pytest.mark.gpu
+def test_replay_is_seen_by_the_profiler(cuda):
+    """A replayed shard program's kernels, K1 among them, show under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    ents, cfg = _small_case(9, "repsn")
+    TA.resolve(ents, cfg, device=cuda)
+    TA.resolve(ents, cfg, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = TA.resolve(ents, cfg, device=cuda)
+        torch.cuda.synchronize()
+    assert res.perf.steady_state
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("fused_band" in n for n in names), names[:20]
+
+
+@pytest.mark.gpu
+def test_cache_eviction_and_clear_return_pool_memory(cuda):
+    """With one entry allowed, capturing key after key returns each
+    evicted graph's pool (reserved memory stays flat), and ``clear()``
+    returns the last one."""
+    from repro_torch.perf import ExecutableCache, executable_cache
+    executable_cache().clear()
+    cache = ExecutableCache(max_entries=1)
+    x = torch.rand((1 << 24,), device=cuda)        # 64 MiB
+
+    def program(v):    # deterministic ops only (a float cumsum is not)
+        return {"z": v * 2.0 + 1.0, "n": (v > 0.5).sum()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    reserved = []
+    for k in range(4):
+        fn = cache.get_or_build(("k", k), lambda: program)
+        fn(x)                                      # warm-up + capture
+        out = fn(x)                                # replay
+        want = program(x)
+        assert torch.equal(out["z"], want["z"]) and \
+            int(out["n"]) == int(want["n"])
+        del out, want
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    assert cache.stats.evictions == 3 and len(cache) == 1
+    assert max(reserved) <= reserved[0] + x.nbytes, reserved
+    cache.clear()
+    assert torch.cuda.memory_reserved() <= base + x.nbytes // 4, \
+        (base, reserved, torch.cuda.memory_reserved())
+
+
+@pytest.mark.gpu
+def test_graph_byte_budget_evicts_before_a_warm_up(cuda, monkeypatch):
+    """With a budget of 0 bytes a new program's first call evicts the
+    graph kept on the card, and returns its pool, before its warm-up; the
+    new graph replays, and the evicted key captures again on its next
+    use."""
+    from repro_torch.perf import ExecutableCache, executable_cache
+    from repro_torch.perf import cache as PC
+    monkeypatch.setattr(PC, "GRAPH_MEMORY_SHARE", 0.0)
+    executable_cache().clear()
+    cache = ExecutableCache()
+    x = torch.rand((1 << 24,), device=cuda)        # 64 MiB
+
+    def program(v):
+        return {"z": v * 2.0 + 1.0}
+
+    cache.get_or_build("a", lambda: program)(x)
+    assert cache.graph_bytes(cuda) >= 2 * x.nbytes   # inputs + output
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    b = cache.get_or_build("b", lambda: program)
+    b(x)                                           # evicts a, captures b
+    assert cache.stats.evictions == 1 and len(cache) == 1
+    assert torch.equal(b(x)["z"], program(x)["z"])  # b's replay
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= reserved + 2 * x.nbytes
+    traces = cache.stats.traces
+    cache.get_or_build("a", lambda: program)(x)    # evicts b, captures a
+    assert cache.stats.traces == traces + 1 and cache.stats.evictions == 2
+    cache.clear()
+    assert cache.graph_bytes(cuda) == 0
+
+
+@pytest.mark.gpu
+def test_shard_map_nccl_world1_equals_vmap(cuda):
+    """``runner="shard_map"`` on a world-size-1 NCCL mesh on the card
+    equals the vmap runner at one shard, for every variant; its second
+    call hits the cache and launches K1."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh_compat
+    from repro_torch.perf import executable_cache
+    assert not dist.is_initialized()
+    mesh = make_mesh_compat((1,), ("data",), device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        for variant in ("srp", "repsn", "jobsn"):
+            ents, cfg = _small_case(10, variant)
+            cfg = cfg.with_(num_shards=1, hops=1)
+            vm = TA.resolve(ents, cfg, device=cuda)
+            smc = cfg.with_(runner="shard_map")
+            TA.resolve(ents, smc, mesh=mesh, device=cuda)
+            before = ops.launch_counts()["fused_band"]
+            sm = TA.resolve(ents, smc, mesh=mesh, device=cuda)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["fused_band"] == \
+                before + _k1_per_program(variant)
+            assert sm.perf.cache_hits >= 1 and sm.perf.cache_misses == 0
+            assert sm.blocking.pairs == vm.blocking.pairs
+            assert sm.matches == vm.matches
+            assert sm.blocking.load == vm.blocking.load
+    finally:
+        executable_cache().clear()
+        dist.destroy_process_group()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("f,words,m,window", [
     (33, 3, 1001, 9), (32, 8, 1000, 7), (32, 8, 700, 256),

@@ -6,11 +6,13 @@ pair set).
     no-op singleton, ``activate`` restoring, thread safety, histogram
     percentiles on one seeded sequence, the registry
   * ``pack_stats`` of the port's five stats types equals the reference's
-    dict for the same run (the executable-cache fields 0 in the port) and
-    round-trips through JSON
+    dict for the same runs (the executable-cache fields too: both caches
+    start empty) and round-trips through JSON
   * a traced resolve, multi-pass resolve, stream, and a stream killed and
     resumed: the untraced sets, the reference's multiset of (span name,
     parent span name) pairs and its metric names
+  * a traced run after an untraced one hits its executables (zero
+    retraces)
   * the port's Chrome export read by the reference's ``tools/
     trace_report.py``
 """
@@ -31,12 +33,10 @@ from repro_torch import api as TA  # noqa: E402
 from repro_torch import obs as TO  # noqa: E402
 from repro_torch import stream as TS  # noqa: E402
 
-from _torch_parity import port_ents  # noqa: E402
+from _torch_parity import clear_caches, port_ents  # noqa: E402
 
 N, R, W = 600, 4, 6
 PACKAGES = [RO, TO]
-CACHE_FIELDS = ("cache_hits", "cache_misses", "traces", "cache_entries",
-                "steady_chunks", "steady_batches")
 
 
 def _kw(**kw):
@@ -162,15 +162,12 @@ def test_histogram_and_registry_match_reference():
 # -- the unified stats schema -------------------------------------------------
 
 def _packed_equal(ref_obj, port_obj, skip=()):
-    """The port's packed stats against the reference's: equal but for the
-    executable-cache fields (0 in the port) and ``skip``; both survive a
-    JSON round trip to an equal typed object."""
+    """The port's packed stats against the reference's: equal but for
+    ``skip``; both survive a JSON round trip to an equal typed object."""
     a, b = RO.pack_stats(ref_obj), TO.pack_stats(port_obj)
     assert set(a) == set(b)
     for k in a:
-        if k in CACHE_FIELDS:
-            assert b[k] == 0, k
-        elif k not in skip:
+        if k not in skip:
             assert a[k] == b[k], (k, a[k], b[k])
     back = TO.unpack_stats(json.loads(json.dumps(b)))
     assert back == port_obj and type(back) is type(port_obj)
@@ -178,6 +175,7 @@ def _packed_equal(ref_obj, port_obj, skip=()):
 
 def test_pack_stats_of_the_same_run_matches_reference(ents):
     kw = _kw(partitioner="pairrange", trace=True)
+    clear_caches()
     ref = RA.resolve(ents, RA.ERConfig(**kw))
     port = TA.resolve(port_ents(ents), TA.ERConfig(**kw), device="cpu")
     for f in ("balance", "perf", "resilience"):
@@ -205,6 +203,20 @@ def test_pack_stats_of_the_same_run_matches_reference(ents):
 
 
 # -- invariant 12 end to end: same sets, same trace shape ---------------------
+
+def test_traced_run_adds_zero_retraces(ents):
+    """A traced resolve after an untraced one hits the executables the
+    untraced one built (``trace`` is not in the static fingerprint)."""
+    from repro_torch.perf import executable_cache
+    cache = executable_cache()
+    cfg = TA.ERConfig(**_kw())
+    TA.resolve(port_ents(ents), cfg, device="cpu")     # warm untraced
+    before = cache.stats.snapshot()
+    res = TA.resolve(port_ents(ents), cfg.with_(trace=True), device="cpu")
+    hits, misses, traces = cache.stats.delta(before)
+    assert traces == 0 and misses == 0 and hits > 0
+    assert res.perf.steady_state and res.trace is not None
+
 
 def test_traced_resolve_matches_reference(ents):
     kw = _kw()

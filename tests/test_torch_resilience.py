@@ -5,26 +5,31 @@ reference on the CPU (invariant 11).
   * kill at every chunk boundary, alternating a clean kill after the
     commit and a torn kill between spool and commit, for every variant x
     band engine: the resumed port run equals the reference's
-    uninterrupted stream (every result and stream field)
+    uninterrupted stream (every result and stream field, the executable-
+    cache counters included: each killed run starts from an empty cache)
   * a mid-ingest kill (``flaky_chunks``), re-running the same call as a
     resume, resuming a finished run, multi-pass checkpoints
   * the resume guards: config and chunk-grid drift, ``compute_metrics``
     with a checkpoint, ``fault_plan`` without one, missing spool files
   * across packages: a checkpoint the reference wrote and killed resumes
-    in the port to the reference's union, and the two packages write the
-    same manifest and the same file members for the same run
+    in the port to the reference's union and to the reference's own
+    resume of it, and the two packages write the same manifest and the
+    same file members for the same run
+  * ``api.resume`` with ``mesh=``: the shard_map runner's resume
   * the overflow ladder on a stream, ``ChunkStore`` crash hygiene, and
     the fault plans themselves
 """
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import assert_same_stream  # noqa: E402
+from _torch_parity import (assert_same_result, assert_same_stream,  # noqa: E402,E501
+                           clear_caches, gloo_mesh)
 from repro import api as RA  # noqa: E402
 from repro import resilience as RZ  # noqa: E402
 from repro import stream as RS  # noqa: E402
@@ -32,6 +37,7 @@ from repro.core import entities as RE  # noqa: E402
 from repro_torch import api as TA  # noqa: E402
 from repro_torch import resilience as TZ  # noqa: E402
 from repro_torch import stream as TS  # noqa: E402
+from repro_torch.perf import executable_cache  # noqa: E402
 
 N, R, W = 360, 4, 6
 CHUNK = 60
@@ -71,7 +77,9 @@ def _fault(pkg, k):
 
 def _ref_stream(h, kw, d):
     """The reference's uninterrupted run, checkpointed into ``d`` so its
-    spool bytes are counted like the port's checkpointed runs."""
+    spool bytes are counted like the port's checkpointed runs; both
+    packages' caches are emptied first."""
+    clear_caches()
     return RS.resolve_stream(_chunks(h), RA.ERConfig(**kw),
                              chunk_size=CHUNK, checkpoint_dir=str(d))
 
@@ -88,6 +96,7 @@ def test_kill_at_every_chunk_boundary(tmp_path, host, variant, engine):
     ref = _ref_stream(host, kw, tmp_path / "ref")
     for k in range(N_CHUNKS):
         d = str(tmp_path / f"{variant}-{engine}-{k}")
+        executable_cache().clear()      # the uninterrupted run's start
         with pytest.raises(TZ.InjectedFault):
             _port_stream(host, kw, checkpoint_dir=d,
                          fault_plan=_fault(TZ, k))
@@ -151,8 +160,6 @@ def test_resume_guards(tmp_path, host):
                           checkpoint_dir=d, device="cpu")
     with pytest.raises(ValueError, match="fingerprint|setup"):
         TZ.resume_stream(d, cfg=cfg.with_(num_shards=R * 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        TA.resume(d, mesh=object(), device="cpu")
     # spool files deleted behind the manifest's back
     os.remove(os.path.join(d, "raw", "raw000003.npz"))
     with pytest.raises(FileNotFoundError, match="committed"):
@@ -188,34 +195,27 @@ def test_reference_checkpoint_resumes_in_port(tmp_path, host, engine):
             RS.resolve_stream(_chunks(host), RA.ERConfig(**kw),
                               chunk_size=CHUNK, checkpoint_dir=d,
                               fault_plan=_fault(RZ, k))
-        # the reference's cache counters of the committed chunks carry over
+        shutil.copytree(d, d + "-ref")
+        # the reference's cache counters of the committed chunks carry
+        # over; a resume from an empty cache rebuilds its first program,
+        # in either package
+        clear_caches()
+        own = RA.resume(d + "-ref")
         res = TA.resume(d, device="cpu")
-        assert_same_stream(ref, _zero_cache(res))
-
-
-def _zero_cache(res):
-    """``res`` with the four cache counters of its stream stats at 0."""
-    from dataclasses import replace
-    return replace(res, stream=replace(
-        res.stream, steady_chunks=0, cache_hits=0, cache_misses=0,
-        traces=0))
+        assert_same_result(ref, res)
+        assert_same_stream(own, res)
 
 
 def _manifest(d):
-    """A MANIFEST.json with the executable-cache counters zeroed (the
-    port's are 0 until M11)."""
     with open(os.path.join(d, "MANIFEST.json")) as f:
-        m = json.load(f)
-    for state in m["passes"].values():
-        for c in ("steady", "hits", "misses", "traces"):
-            state[c] = 0
-    return m
+        return json.load(f)
 
 
 def test_checkpoint_files_match_reference(tmp_path, host):
     kw = _kw(band_engine="pallas", window_policy="adaptive", window=3,
              window_max=8)
     dr, dp = str(tmp_path / "ref"), str(tmp_path / "port")
+    clear_caches()
     ref = RS.resolve_stream(_chunks(host), RA.ERConfig(**kw),
                             chunk_size=CHUNK, checkpoint_dir=dr)
     port = _port_stream(host, kw, checkpoint_dir=dp)
@@ -241,6 +241,7 @@ def test_checkpoint_files_match_reference(tmp_path, host):
 def test_retry_ladder_on_a_stream_matches_reference(host):
     kw = _kw(variant="srp", emit="pairs", partitioner="uniform",
              pair_cap=32, on_overflow="retry", retry_limit=8)
+    clear_caches()
     ref = RS.resolve_stream(_chunks(host), RA.ERConfig(**kw),
                             chunk_size=CHUNK)
     port = _port_stream(host, kw)
@@ -249,6 +250,23 @@ def test_retry_ladder_on_a_stream_matches_reference(host):
     assert port.blocking.pair_overflow == 0
     tiny = TZ.micro_caps(TA.ERConfig(**kw), pair_cap=8)
     assert (tiny.cand_cap, tiny.pair_cap) == (2, 8)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_resume_on_a_mesh(tmp_path, host, gloo_mesh, variant):
+    """``api.resume(mesh=...)`` resumes a killed shard_map stream on the
+    world-size-1 gloo mesh to the uninterrupted run's result."""
+    kw = _kw(variant=variant, band_engine="pallas", runner="shard_map",
+             num_shards=1, hops=1)
+    whole = _port_stream(host, kw, mesh=gloo_mesh)
+    d = str(tmp_path / variant)
+    executable_cache().clear()
+    with pytest.raises(TZ.InjectedFault):
+        _port_stream(host, kw, mesh=gloo_mesh, checkpoint_dir=d,
+                     fault_plan=TZ.FaultPlan(crash_before_commit=3))
+    res = TA.resume(d, mesh=gloo_mesh, device="cpu")
+    assert_same_result(whole, res)
+    assert res.blocking.runner == "shard_map"
 
 
 def test_chunk_store_crash_hygiene(tmp_path, host):

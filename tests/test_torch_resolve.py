@@ -2,7 +2,8 @@
 the reference's, bit-identical in pairs, matches, ``load`` and every
 counter (``_torch_parity.assert_same_result``), across 3 variants x
 {scan, pallas} x {band, pairs} x {sequential, vmap}, with the paper's
-cascade (edit distance on ``text``).
+cascade (edit distance on ``text``), and the shard_map runner at world
+size 1.
 
 The reference runs its pallas engine with ``band_interpret=None`` (its
 plain jnp cheap band); one case forces its interpreted Pallas kernel."""
@@ -18,8 +19,8 @@ from repro import api as RA  # noqa: E402
 from repro.core import entities as RE  # noqa: E402
 from repro_torch import api as TA  # noqa: E402
 
-from _torch_parity import (assert_same_result, paper_cascades,  # noqa: E402
-                           port_ents)
+from _torch_parity import (assert_same_result, gloo_mesh,  # noqa: E402
+                           paper_cascades, port_ents)
 
 N, R, WIN, NK = 160, 4, 5, 40
 
@@ -132,17 +133,25 @@ def test_legacy_partitioners_equal_reference(ents, partitioner):
     assert_same_result(ref, port)
 
 
-UNPORTED = [
-    ("shard_map", dict(runner="shard_map"), "M11"),
-]
-
-
-@pytest.mark.parametrize("kw,item", [u[1:] for u in UNPORTED],
-                         ids=[u[0] for u in UNPORTED])
-def test_unported_features_raise(ents, kw, item):
-    cfg = TA.ERConfig(window=WIN, num_shards=R, **kw)   # accepted here
-    with pytest.raises(NotImplementedError, match=item):
-        TA.resolve(port_ents(ents), cfg, device="cpu")
+@pytest.mark.parametrize("variant", ["srp", "repsn", "jobsn"])
+def test_shard_map_runner_equals_reference(ents, gloo_mesh, variant):
+    """``runner="shard_map"`` on the port's world-size-1 gloo mesh against
+    the reference's shard_map on its one CPU device (every counter), and
+    against the port's vmap runner at one shard."""
+    kw = dict(window=WIN, variant=variant, band_engine="pallas",
+              emit="pairs", num_shards=1, hops=1)
+    ref_m, port_m = paper_cascades()
+    ref = RA.resolve(ents, RA.ERConfig(matcher=ref_m, runner="shard_map",
+                                       **kw))
+    port = TA.resolve(port_ents(ents), TA.ERConfig(
+        matcher=port_m, runner="shard_map", **kw), mesh=gloo_mesh,
+        device="cpu")
+    vm = TA.resolve(port_ents(ents), TA.ERConfig(matcher=port_m, **kw),
+                    device="cpu")
+    assert ref.blocking.num_shards == port.blocking.num_shards == 1
+    assert_same_result(ref, port)
+    assert_same_result(vm, port)
+    assert port.blocking.runner == "shard_map"
 
 
 def test_config_validation_matches_reference():

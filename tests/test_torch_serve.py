@@ -8,9 +8,11 @@ it):
 
   * every variant x band engine under interleaved inserts and deletes:
     the served sets, every ``IncrementalResult`` (edits, stable pair ids,
-    batch width) and every ``ServeStats`` field but the four executable-
-    cache counters (0 in the port) and the latencies equal the reference
-    service's, and the served sets equal a from-scratch port resolve
+    batch width) and every ``ServeStats`` field but the latencies (the
+    executable-cache counters included: both caches start empty) equal
+    the reference service's, and the served sets equal a from-scratch
+    port resolve
+  * steady micro-batches are pure executable-cache hits (zero retraces)
   * maintained-set semantics, stable pair ids, compaction, delete-all,
     the micro-batcher on the worker thread, the guardrails
   * a snapshot written by either package restores in the other
@@ -24,7 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import assert_same_serve, port_ents  # noqa: E402
+from _torch_parity import (assert_same_serve, clear_caches,  # noqa: E402
+                           port_ents)
 from repro import api as RA  # noqa: E402
 from repro.core import entities as RE  # noqa: E402
 from repro.serve import ResolutionService as RefService  # noqa: E402
@@ -62,7 +65,9 @@ def _take(h, sel):
 
 
 def _services(kw, initial, **svc_kw):
-    """(reference, port) services under one kwargs dict, both inline."""
+    """(reference, port) services under one kwargs dict, both inline and
+    both from an empty executable cache."""
+    clear_caches()
     ref = RA.serve(RA.ERConfig(**kw), initial=initial, start=False,
                    **svc_kw)
     port = TA.serve(TA.ERConfig(**kw), initial=initial, start=False,
@@ -143,6 +148,7 @@ def test_delete_creates_insert_retires_and_ids_stay(corpus):
 def test_compaction_reclaims_and_preserves(corpus, tmp_path):
     kw = _kw(num_shards=2, hops=1)
     spools = [str(tmp_path / "ref"), str(tmp_path / "port")]
+    clear_caches()
     ref = RA.serve(RA.ERConfig(**kw), initial=_take(corpus, slice(0, 200)),
                    start=False, spool_dir=spools[0], segment_rows=64,
                    max_runs=3, max_tombstone_frac=0.1)
@@ -222,30 +228,41 @@ def test_snapshot_crosses_packages(corpus, tmp_path, writer):
                                   start=False, device="cpu")
 
 
+def _microbatch(pkg, corpus, kw, **svc_kw):
+    """Bootstrap 200 entities, then six inserts submitted together (one
+    coalesced batch), then an insert and a delete: (service, the six
+    results, the stats after them)."""
+    svc = pkg.serve(pkg.ERConfig(**kw), initial=_take(corpus, slice(0, 200)),
+                    max_batch=400, max_wait_ms=250.0, **svc_kw)
+    futs = [svc.submit_insert(_take(corpus, slice(200 + 5 * i, 205 + 5 * i)))
+            for i in range(6)]
+    res = [f.result(timeout=60) for f in futs]
+    fi = svc.submit_insert(_take(corpus, slice(230, 240)))
+    fd = svc.submit_delete(corpus["eid"][232:234])
+    fi.result(timeout=60), fd.result(timeout=60)
+    return svc, res, svc.stats()
+
+
 def test_microbatcher_coalesces_and_preserves_order(corpus):
     kw = _kw()
-    svc = TA.serve(TA.ERConfig(**kw), initial=_take(corpus, slice(0, 200)),
-                   max_batch=400, max_wait_ms=250.0, device="cpu")
+    clear_caches()
+    ref, _, ref_st = _microbatch(RA, corpus, kw)
+    ref.close()
+    svc, res, st = _microbatch(TA, corpus, kw, device="cpu")
     try:
-        futs = [svc.submit_insert(_take(corpus, slice(200 + 5 * i,
-                                                      205 + 5 * i)))
-                for i in range(6)]
-        res = [f.result(timeout=60) for f in futs]
         assert all(r.batched == 6 for r in res)
         assert res[0] is res[5]
-        fi = svc.submit_insert(_take(corpus, slice(230, 240)))
-        fd = svc.submit_delete(corpus["eid"][232:234])
-        fi.result(timeout=60), fd.result(timeout=60)
         live = np.zeros(N, bool)
         live[:240] = True
         live[232:234] = False
         _assert_fresh(svc, corpus, live, kw)
-        st = svc.stats()
         assert st.requests == 9 and st.batches <= 4
         assert st.p95_ms >= st.p50_ms > 0.0
-        # the port has no executable cache (ROADMAP M11)
-        assert (st.steady_batches, st.cache_hits, st.cache_misses,
-                st.traces) == (0, 0, 0, 0)
+        # the same batches meter the reference's executable-cache counters
+        assert (st.batches, st.steady_batches, st.cache_hits,
+                st.cache_misses, st.traces) == \
+            (ref_st.batches, ref_st.steady_batches, ref_st.cache_hits,
+             ref_st.cache_misses, ref_st.traces)
         assert st.device_calls > 0 and st.shapes
         # a port-tensor insert and a host insert in the reference's dtypes
         # (uint32 signatures) coalesce into one batch
@@ -258,8 +275,31 @@ def test_microbatcher_coalesces_and_preserves_order(corpus):
         _assert_fresh(svc, corpus, live, kw)
     finally:
         svc.close(timeout=60)
-    with pytest.raises(RuntimeError):
-        svc.resolve_incremental(_take(corpus, slice(240, 241)))
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_steady_state_is_zero_retrace(corpus, engine):
+    """Shape bucketing: after warm-up, identically-sized micro-batches are
+    pure executable-cache hits — traces do not grow with requests, in
+    either package, and the counters agree."""
+    kw = _kw(band_engine=engine)
+    ref, port = _services(kw, _take(corpus, slice(0, 300)))
+    for i in range(3):                                   # warm the buckets
+        for svc in (ref, port):
+            svc.resolve_incremental(_take(corpus, slice(300 + 10 * i,
+                                                        310 + 10 * i)))
+    warm = port.stats()
+    for i in range(3, 8):
+        pair = [svc.resolve_incremental(
+            _take(corpus, slice(300 + 10 * i, 310 + 10 * i)))
+            for svc in (ref, port)]
+    st = pair[1].stats
+    assert st.traces == warm.traces
+    assert st.cache_misses == warm.cache_misses
+    assert st.cache_hits > warm.cache_hits
+    assert st.steady_batches - warm.steady_batches == 5
+    assert len(st.shapes) == len(warm.shapes)
+    assert_same_serve(ref, port, *pair)
 
 
 def test_service_guardrails(corpus):

@@ -3,14 +3,16 @@ with the reference's ``repro.stream`` on the CPU.
 
 The same numpy chunks go through both packages (JAX on the CPU, the
 pallas engine as the reference's own tests run it); every field of the
-result contract, every ``StreamStats`` field but the four executable-cache
-counters (0 in the port until M11), the overflow-recovery stats and the
-metrics must be identical:
+result contract, every ``StreamStats`` field (the executable-cache
+counters too: both caches are emptied before each pair of runs), the
+overflow-recovery stats and the metrics must be identical:
 
   * every variant x band engine at a fixed chunking, random chunkings
     (chunk_size < w included), spooled and in-memory runs
   * SRP under each planner, the sequential runner, multi-pass, adaptive
     (and pruned) streams, metrics, ``link_stream``
+  * a second stream of the same shapes replays every chunk (zero traces)
+  * a stream on the shard_map runner's world-size-1 gloo mesh
   * the units: sorted runs, ``merged_blocks``, ``rechunk``, ``ChunkStore``
 """
 import os
@@ -20,7 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import assert_same_stream  # noqa: E402
+from _torch_parity import (assert_same_stream, clear_caches,  # noqa: E402
+                           gloo_mesh)
 from repro import api as RA  # noqa: E402
 from repro import stream as RS  # noqa: E402
 from repro.core import entities as RE  # noqa: E402
@@ -73,7 +76,9 @@ def _even(h, sz):
 
 def _both(chunks, kw, ref_kw=None, **stream_kw):
     """(reference, port) StreamResults of the same chunks under one kwargs
-    dict (``ref_kw`` overrides reference-only stream arguments)."""
+    dict (``ref_kw`` overrides reference-only stream arguments), both
+    from an empty executable cache."""
+    clear_caches()
     ref = RS.resolve_stream(chunks, RA.ERConfig(**kw),
                             **dict(stream_kw, **(ref_kw or {})))
     port = TS.resolve_stream(chunks, TA.ERConfig(**kw), device="cpu",
@@ -161,6 +166,7 @@ def test_sequential_runner_stream(host):
 
 
 def test_multipass_stream(host, tmp_path):
+    clear_caches()
     ref = RS.resolve_stream(_even(host, 175), RA.ERConfig(
         **_kw(passes=_passes(RA))), chunk_size=175,
         spool_dir=str(tmp_path / "ref"))
@@ -192,6 +198,7 @@ def test_link_stream_matches_reference():
     lhs = RE.to_host(RE.synth_entities(rng, 260, n_keys=50))
     rhs = RE.to_host(RE.synth_entities(rng, 220, n_keys=50))
     kw = _kw(compute_metrics=True)
+    clear_caches()
     ref = RS.link_stream(_even(lhs, 100), _even(rhs, 90),
                          RA.ERConfig(**kw), chunk_size=150)
     port = TS.link_stream(_even(lhs, 100), _even(rhs, 90),
@@ -213,15 +220,48 @@ def test_port_entity_chunks_stream_like_host_chunks(host):
 
 def test_stream_refuses_what_is_not_ported(host):
     cfg = TA.ERConfig(**_kw())
-    with pytest.raises(NotImplementedError, match="M11"):
-        TS.resolve_stream(_even(host, 350), cfg, mesh=object(),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        TS.link_stream(_even(host, 350), _even(host, 350), cfg,
-                       mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TS.resolve_stream(_even(host, 350), cfg)
+
+
+def test_second_stream_is_steady(host):
+    """Zero-retrace (DESIGN.md invariant 10): after one stream, a second of
+    the same shapes rebuilds and retraces nothing — every chunk steady,
+    as the reference's."""
+    kw = _kw(band_engine="pallas")
+    clear_caches()
+    for pkg, stream, extra in ((RA, RS, {}), (TA, TS, {"device": "cpu"})):
+        first = stream.resolve_stream(_even(host, 175), pkg.ERConfig(**kw),
+                                      chunk_size=175, **extra)
+        again = stream.resolve_stream(_even(host, 175), pkg.ERConfig(**kw),
+                                      chunk_size=175, **extra)
+        st = again.stream
+        assert st.traces == 0 and st.cache_misses == 0
+        assert st.steady_chunks == st.chunks and st.cache_hits >= st.chunks
+        assert again.pairs == first.pairs and again.matches == first.matches
+        assert first.stream.traces >= 1
+        if pkg is RA:
+            ref_first, ref_again = first, again
+    assert_same_stream(ref_first, first)
+    assert_same_stream(ref_again, again)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_stream_with_mesh_equals_vmap_stream(host, gloo_mesh, variant):
+    """``mesh=`` reaches the shard_map runner: at world size 1 its stream
+    gives the vmap stream's pairs, matches and accounting."""
+    kw = _kw(variant=variant, band_engine="pallas", num_shards=1, hops=1)
+    vm = TS.resolve_stream(_even(host, 175), TA.ERConfig(**kw),
+                           chunk_size=175, device="cpu")
+    sm = TS.resolve_stream(_even(host, 175), TA.ERConfig(
+        **dict(kw, runner="shard_map")), chunk_size=175, mesh=gloo_mesh,
+        device="cpu")
+    assert sm.pairs == vm.pairs and sm.matches == vm.matches
+    for f in ("load", "overflow", "cand_count", "cand_overflow",
+              "matcher_evals", "pair_overflow"):
+        assert getattr(sm.blocking, f) == getattr(vm.blocking, f), f
+    assert sm.blocking.runner == "shard_map"
 
 
 def test_stream_rejects_what_monolithic_rejects():
