@@ -28,7 +28,7 @@ Run from the root of a checkout.  Phases, one JSON line each:
   5. attention  ``kernels.ops.local_attn`` at one sliding-window layer of
               Mixtral-8x22B and of Gemma-2-9B (8k prefill, bf16)
   6. parity   resolve() on the card == the sequential host oracle, for
-              srp/repsn/jobsn x scan/pallas at n=100,000 (cut from
+              srp/repsn/jobsn x scan/pallas at n=50,000 (cut from
               200,000 to keep the script inside its time limit)
   7. main     the resolve main path at full size: the paper's 1.4M-record
               corpus, w=10, r=8, repsn hops=7, vmap runner, balanced
@@ -42,18 +42,19 @@ Run from the root of a checkout.  Phases, one JSON line each:
               holds K1; one steady resolve traced (``ERConfig.trace``):
               its sets equal the untraced run's, and its plan,
               shard-program, collection and frozenset seconds come from
-              its spans; then the same resolve with ``jit_cache=False``
-              (eager): equal sets, its seconds and peak memory beside the
-              cached run's
+              its spans; then the same resolve once with
+              ``jit_cache=False`` (eager): equal sets, its seconds and
+              peak memory beside the cached run's
   8. planned  the profile planners at full size: phase 7's corpus and
               config under pairrange and blocksplit (blocked and matched
               sets equal phase 7's), and the skewed Zipfian corpus of
               BENCH_balance.json at 1.4M records under uniform, blocksplit
               and pairrange with the default cosine + Jaccard matcher
               (blocked sets equal the sequential oracle, matches agree);
-              the planned shard shape, imbalance, resolve seconds, the
-              device program beside phase 7's, and K1 timed at each
-              planned shard shape
+              the planned shard shape, imbalance, cold resolve seconds,
+              one traced steady resolve per corpus (main/pairrange,
+              zipf/uniform) taken apart by its spans, its device program
+              beside phase 7's, and K1 timed at each planned shard shape
   9. quality  the quality harness at full size: a 1.4M-record labeled
               corpus (BENCH_recall.json's shape) resolved at fixed w=8,
               adaptive windows 4..12 with and without evidence pruning
@@ -88,19 +89,34 @@ Run from the root of a checkout.  Phases, one JSON line each:
               steady (replayed) batches, the delta calls' shard-program
               ms; bootstrap s, p50/p95 ms, inserts/s, peak memory
  12. shard_map  the shard_map runner on a world-size-1 NCCL mesh on the
-              card: srp/repsn/jobsn x scan/pallas at n=100,000, r=1, equal
+              card: srp/repsn/jobsn x scan/pallas at n=50,000, r=1, equal
               to the vmap runner and the sequential oracle, K1 on every
               pallas shard program, the second call a graph replay
+ 13. lm       the LM scaffold's serving path (``repro_torch.models``,
+              ``train.steps``): Gemma-2-9B as configured (full width, all
+              42 layers, random bf16 weights from a seeded generator),
+              ``make_prefill_step`` on a batch of 2 prompts of 28,672
+              tokens into a 32,768-token cache, then 32 greedy
+              ``make_decode_step`` steps; the 21 local layers of every
+              prefill through K4 (``flash_attention``'s route), the 21
+              global ones through the plain f32 chunk-pair scan; the
+              prefill traced by torch.profiler (CUDA activity: K4's time
+              in it) with its attention and MLPs timed by CUDA events;
+              one decode step profiled; K4 held against the plain scan at one real
+              layer's q, k, v and timed there beside its bound; prefill +
+              decode against one forward (LM_CHECK_TOL); every logit
+              finite
 
-Phases 4, 5 and 7-11 each set every launch count to 0 just before they
+Phases 4, 5 and 7-13 each set every launch count to 0 just before they
 drive their path and read the counts just after; each raises if a kernel
 of its path was not launched, phases 8 and 9 if K1 was not launched on
 every resolve (every pass of a multi-pass one), phase 10 if it was not
 launched on every chunk it resolved, phase 11 if it was not launched
-on every delta call, and phase 12 if not on every pallas shard program.
+on every delta call, phase 12 if not on every pallas shard program, and
+phase 13 unless K4 ran 21 times in each of its K4-routed prefill calls.
 A replayed CUDA graph launches without the host: the cache adds the
 launches its capture recorded on every replay, so the counts hold for
-replays too.  Phases 7-12 start from an empty executable cache and raise
+replays too.  Phases 7-13 start from an empty executable cache and raise
 if they reserved more than RESERVED_CAP bytes of device memory.  Then
 come each phase's seconds, the kernel table ``{"kernels": [...]}``,
 the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
@@ -133,7 +149,7 @@ BOUND_BASIS = ("H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s f32 "
                "non-tensor, 989 TFLOP/s bf16 dense tensor")
 
 N_FULL = 1_400_000          # paper §5.1: 1.4M publication records
-N_PARITY = 100_000         # cut from 200,000: the script's time limit
+N_PARITY = 50_000          # cut from 200,000: the script's time limit
 N_KEYS = 26 ** 3            # three-letter title-prefix keys
 W, R, HOPS = 10, 8, 7
 # BENCH_balance.json's skewed corpus (zipf_entities), at the paper's scale
@@ -141,6 +157,9 @@ ZIPF = dict(n_clusters=256, exponent=1.0, dup_frac=0.2)
 # BENCH_recall.json's labeled corpus and windows, at the paper's scale
 RECALL = dict(max_cluster=12, typo_rate=0.1)
 W_BASE, W_FIXED, W_MAX, PRUNE = 4, 8, 12, 0.55
+# phase planned: the one planner per corpus whose steady resolve is traced
+# and profiled (_breakdown); the others run their cold resolve and gates
+PLANNED_TRACED = {"main": "pairrange", "zipf": "uniform"}
 # phase stream: input chunks in generator order, native chunk width
 STREAM_INPUT, STREAM_CHUNK = 175_000, 350_000
 # phase serve: base corpus (cut from 1.4M, see its ``reduced``) and the
@@ -168,6 +187,24 @@ SPIN_CYCLES = 2_000_000
 # no phase may reserve more device memory than this at its peak (the kept
 # graphs' pools included): the card's 80 GB less headroom
 RESERVED_CAP = 64e9
+# phase lm: Gemma-2-9B as configured (full width, all 42 layers, bf16
+# weights from a seeded generator), served at batch 2 (cut from
+# prefill_32k's 32 and decode_32k's 128: one card holds the 18.5 GB model
+# plus an 11.3 GB global KV cache at batch 2) with a prompt of 7 windows
+# (28,672 tokens) into decode_32k's 32,768-token cache, then 32 greedy
+# decode steps
+LM_ARCH, LM_SEED = "gemma2-9b", 19
+LM_BATCH, LM_PROMPT, LM_DECODE = 2, 28_672, 32
+# the cache-semantics check: a prefill of LM_CHECK_PROMPT tokens plus
+# LM_CHECK_DECODE decode steps against one forward over all of them (both
+# sides through K4), at batch 1 (the forward's f32 logits are 8.65 GB)
+LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_DECODE = 1, 8_192, 256
+# bound on |decode logits - forward logits| at bf16 through 42 layers:
+# the logits are bf16 matmul outputs of magnitude ~1-5 (one bf16 ulp is
+# 2**-6 at 2-4) and the two paths round attention differently (K4 / the
+# f32 scan against the f32 decode attention); set above the drift read on
+# the card (PERF.md §6) with room
+LM_CHECK_TOL = 0.25
 # the delta calls' mean shard_program ms in phase serve of an earlier
 # version of this script, when every program ran eagerly (PERF.md §5);
 # a constant, printed beside this run's readings, never measured here
@@ -900,7 +937,7 @@ def phase_parity():
                          "resolve_s": round(secs, 3),
                          "sequential_s": round(seq_s, 3)})
     emit({"phase": "parity", "n": N_PARITY, "equal": True, "runs": rows,
-          "reduced": ["n 200,000 -> 100,000: the script's time limit"]})
+          "reduced": ["n 200,000 -> 50,000: the script's time limit"]})
 
 
 def _device_busy(fn):
@@ -971,18 +1008,28 @@ def _breakdown(ents, cfg):
 
 
 def _dedup_times(blocked):
-    """Seconds of the dedup the host collection runs (``unique_packed``)
-    against ``np.unique``, on the same shuffled blocked pairs."""
+    """Seconds of the dedup the host collection runs (``unique_packed``) on
+    the shuffled blocked pairs.  ``np.unique`` on the same pairs is no
+    longer read: PERF.md §5 holds its 13.87 s against 0.205 s."""
     import numpy as np
     from repro_torch.api.results import unique_packed
     shuffled = np.random.default_rng(0).permutation(blocked)
     t0 = time.perf_counter()
-    np.unique(shuffled)
-    np_unique_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     unique_packed(shuffled)
-    return {"dedup_np_unique_s": np_unique_s,
-            "dedup_unique_packed_s": time.perf_counter() - t0}
+    return {"dedup_unique_packed_s": time.perf_counter() - t0}
+
+
+class _Laps:
+    """Host seconds of a phase's steps: ``lap(name)`` adds the time since
+    the previous lap (or the start) to ``name``."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 def _gb_cap(label):
@@ -1027,12 +1074,14 @@ def phase_main():
     from repro_torch.core import sn
     from repro_torch.kernels import ops
 
+    lap = _Laps()
     ents = E.synth_entities(np.random.default_rng(0), N_FULL, n_keys=N_KEYS,
                             dup_frac=0.2, text_len=16, device="cuda")
     cfg = api.ERConfig(**_cfg_kw(variant="repsn", runner="vmap",
                                  partitioner="balanced",
                                  band_engine="pallas"))
     run = lambda c=cfg: api.resolve(ents, c, device="cuda")
+    lap("corpus")
 
     _fresh_cache()
     ops.reset_launch_counts()
@@ -1052,6 +1101,7 @@ def phase_main():
     if not res.matches:
         raise AssertionError("main path matched nothing")
 
+    lap("cold")
     before = ops.launch_counts()["fused_band"]
     steady, steady_s = wall(run)
     steady_perf = _perf(steady)
@@ -1065,6 +1115,7 @@ def phase_main():
         raise AssertionError("main: the replayed resolve's sets differ")
     del steady
     cached_peak = _gb_cap("main (cached)")
+    lap("steady")
     breakdown, traced = _breakdown(ents, cfg)
     # invariant 12: the traced resolve gives the untraced sets
     if traced.blocking.pairs != res.blocking.pairs or \
@@ -1080,15 +1131,17 @@ def phase_main():
                              f" fused_band kernels in the profiled replay: "
                              f"{breakdown['top_kernels_s']}")
     del traced
+    lap("traced")
     sets = _packed_sets(res)
+    lap("pack")
     breakdown.update(_dedup_times(sets[0]))
+    lap("dedup")
     launches["fused_band"] += replay_launches
 
-    # the same resolve eagerly, from an empty cache
+    # the same resolve eagerly, once, from an empty cache
     _fresh_cache()
     eager_cfg = cfg.with_(jit_cache=False)
-    eager, eager_cold_s = wall(lambda: run(eager_cfg))
-    eager_steady_s = wall(lambda: run(eager_cfg))[1]
+    eager, eager_s = wall(lambda: run(eager_cfg))
     eager_peak = _gb_cap("main (jit_cache=False)")
     if eager.blocking.pairs != res.blocking.pairs or \
             eager.matches != res.matches:
@@ -1096,6 +1149,7 @@ def phase_main():
                              "the cached one's")
     eager_perf = _perf(eager)
     del eager
+    lap("eager")
 
     scan, scan_s = wall(lambda: run(eager_cfg.with_(band_engine="scan")))
     if scan.matches != res.matches or scan.blocking.pairs != \
@@ -1105,9 +1159,14 @@ def phase_main():
             f"{len(res.matches)}, blocked {len(scan.blocking.pairs)} vs "
             f"{len(res.blocking.pairs)}")
     del scan
+    lap("scan")
     rec = {"phase": "main", "n": N_FULL, "n_keys": N_KEYS, "w": W, "r": R,
            "hops": HOPS, "variant": "repsn", "band_engine": "pallas",
-           "emit": "pairs", "reduced": [],
+           "emit": "pairs",
+           "reduced": ["one jit_cache=False resolve, not two (cold and "
+                       "steady eager differ only by the host's spread)",
+                       "np.unique of the blocked pairs no longer timed "
+                       "(PERF.md §5: 13.87 s against 0.205 s)"],
            "rows_per_shard": R * int(np.ceil(N_FULL / R)) + W - 1,
            "cand_cap": res.resilience.cand_cap,
            "pair_cap": res.resilience.pair_cap,
@@ -1125,14 +1184,13 @@ def phase_main():
                      "replay_k1_launches": replay_launches,
                      "max_memory_allocated": cached_peak[0],
                      "max_memory_reserved": cached_peak[1]},
-           "eager": {"jit_cache": False, "cold_s": eager_cold_s,
-                     "steady_s": eager_steady_s, "perf": eager_perf,
+           "eager": {"jit_cache": False, "s": eager_s, "perf": eager_perf,
                      "sets_equal_cached": True,
                      "max_memory_allocated": eager_peak[0],
                      "max_memory_reserved": eager_peak[1]},
            "max_memory_allocated": cached_peak[0],
            "scan_s": scan_s, "scan_matched_equal": True,
-           "scan_jit_cache": False}
+           "scan_jit_cache": False, "laps_s": lap.seconds}
     emit(rec)
     return rec, ents, sets
 
@@ -1180,29 +1238,27 @@ def _oracle_pool(workers):
                                mp_context=multiprocessing.get_context("spawn"))
 
 
-def _planned_run(ents, cfg, label):
+def _planned_run(ents, cfg, label, breakdown):
     """One corpus resolved under one profile planner, in the cache the
     phase's earlier runs left (its graph budget evicts their graphs before
     this run's warm-up): the plan first (its shard shape), then a cold
-    resolve (captured) and a steady one (replayed), traced and taken apart
-    by its spans (``_breakdown``).  Returns (record, packed blocked,
-    packed matched)."""
+    resolve (captured); with ``breakdown``, a steady one (replayed),
+    traced and taken apart by its spans (``_breakdown``).  Returns
+    (record, packed blocked, packed matched)."""
     import numpy as np
     from repro_torch import api
     from repro_torch.perf import executable_cache
+    lap = _Laps()
     plan = api.plan_shards(ents, cfg, R)
+    lap("plan")
     res, cold_s = _counted_resolve(ents, cfg, label)
     graph_bytes = executable_cache().graph_bytes("cuda")
     _zero_overflow(res, label)
+    lap("cold")
     blocked, matched = _packed_sets(res)
     bal = res.balance
     del res
-    before = _k1_launches()
-    breakdown = _breakdown(ents, cfg)[0]
-    if _k1_launches() - before < 2:       # the resolve + the profiled run
-        raise AssertionError(f"{label}: K1 launched {_k1_launches() - before}"
-                             f" times over the traced steady resolve and "
-                             f"its profiled shard program")
+    lap("pack")
     rec = {"label": label, "partitioner": cfg.partitioner,
            "cap_link": plan.cap_link,
            "rows_per_shard": R * plan.cap_link + cfg.window - 1,
@@ -1212,11 +1268,20 @@ def _planned_run(ents, cfg, label):
            "imbalance_planned": bal.imbalance_planned,
            "imbalance_realized": bal.imbalance_realized,
            "blocked": int(blocked.size), "matched": int(matched.size),
-           "cold_s": cold_s, "graph_bytes": graph_bytes,
-           "traced_steady_s": breakdown["traced_s"],
-           "device_program_s": breakdown["device_program_s"],
-           "device_kernel_busy_s": breakdown["device_kernel_busy_s"],
-           "breakdown": breakdown}
+           "cold_s": cold_s, "graph_bytes": graph_bytes}
+    if breakdown:
+        before = _k1_launches()
+        parts = _breakdown(ents, cfg)[0]
+        if _k1_launches() - before < 2:   # the resolve + the profiled run
+            raise AssertionError(
+                f"{label}: K1 launched {_k1_launches() - before} times over "
+                f"the traced steady resolve and its profiled shard program")
+        rec.update(traced_steady_s=parts["traced_s"],
+                   device_program_s=parts["device_program_s"],
+                   device_kernel_busy_s=parts["device_kernel_busy_s"],
+                   breakdown=parts)
+        lap("traced")
+    rec["laps_s"] = lap.seconds
     return rec, blocked, matched
 
 
@@ -1288,7 +1353,8 @@ def _planned_main(main_ents, main_sets):
     for planner in ("pairrange", "blocksplit"):
         rec, blocked, matched = _planned_run(
             main_ents, main_cfg.with_(partitioner=planner),
-            f"planned main/{planner}")
+            f"planned main/{planner}",
+            breakdown=planner == PLANNED_TRACED["main"])
         _assert_equal(f"planned main/{planner} blocked", blocked,
                       main_sets[0])
         _assert_equal(f"planned main/{planner} matched", matched,
@@ -1328,7 +1394,8 @@ def phase_planned(main_rec, main_ents, main_sets):
     for planner in ("uniform", "blocksplit", "pairrange"):
         label = f"planned zipf/{planner}"
         rec, blocked, matched = _planned_run(
-            zipf, zipf_cfg.with_(partitioner=planner), label)
+            zipf, zipf_cfg.with_(partitioner=planner), label,
+            breakdown=planner == PLANNED_TRACED["zipf"])
         _assert_equal(f"{label} blocked vs sequential oracle", blocked,
                       oracle)
         if zipf_matched is None:
@@ -1353,7 +1420,13 @@ def phase_planned(main_rec, main_ents, main_sets):
             k1[rows] = _k1_at(rows, f"planned shape {rows}")
         run["k1_ms_at_shard_shape"] = k1[rows]["ms"]
     rec = {"phase": "planned", "n": N_FULL, "w": W, "r": R, "hops": HOPS,
-           "reduced": [], "zipf": dict(ZIPF, seed=0),
+           "reduced": ["the traced, profiled steady resolve (_breakdown) "
+                       "for one run per corpus (main/pairrange, "
+                       "zipf/uniform), not all five: the script's time "
+                       "limit; every run keeps its cold resolve and set "
+                       "gates"],
+           "traced": PLANNED_TRACED,
+           "zipf": dict(ZIPF, seed=0),
            "zipf_make_s": zipf_s, "zipf_oracle_wait_s": oracle_wait_s,
            "expected_blocked": expected, "launches": launches,
            "cache_evictions": evictions,
@@ -1375,15 +1448,17 @@ def phase_quality():
     import numpy as np
     import torch
     from repro_torch import api, quality
-    from repro_torch.api.results import pack_pair_set
+    from repro_torch.api.results import pack_pair_set, union_sorted
     from repro_torch.balance import profile_keys
     from repro_torch.core import keys as K
     from repro_torch.data import labeled_corpus
     from repro_torch.kernels import ops
 
     _fresh_cache()
+    lap = _Laps()
     tc, make_s = wall(lambda: labeled_corpus(1, N_FULL, **RECALL,
                                              device="cuda"))
+    lap("corpus")
     base = api.ERConfig(window=W_FIXED, num_shards=R, hops=HOPS,
                         variant="repsn", runner="vmap", band_engine="pallas",
                         emit="pairs", partitioner="pairrange")
@@ -1400,6 +1475,7 @@ def phase_quality():
     weff = quality.weff_for_keys(keys, profile_keys(keys, window=W_BASE),
                                  W_BASE, W_MAX)
     runs, q, blocked = {}, {}, {}
+    lap("weff")
     with _oracle_pool(len(passes) + 1) as pool:
         jobs = [pool.submit(_oracle_packed, keys, eids, weff=weff)] + [
             pool.submit(_oracle_packed,
@@ -1407,8 +1483,10 @@ def phase_quality():
                         eids, W_FIXED) for spec in passes]
         ops.reset_launch_counts()
         for label, cfg, n_passes in configs:
+            lap("oracle_jobs")
             res, secs = _counted_resolve(tc.ents, cfg, f"quality {label}",
                                          n_passes)
+            lap("resolve")
             for part in getattr(res, "passes", (res,)):
                 _zero_overflow(part, f"quality {label}")
             blocked[label] = pack_pair_set(res.blocking.pairs)
@@ -1426,17 +1504,21 @@ def phase_quality():
                            "pruned": res.blocking.pruned,
                            "matched": len(res.matches)}
             del res
+            lap("pack_evaluate")
         torch.cuda.synchronize()
         launches = ops.launch_counts()
         peak = _gb_cap("quality")
         oracles, oracle_wait_s = wall(lambda: [j.result() for j in jobs])
+    lap("oracle_wait")
 
     _assert_equal("quality adaptive vs adaptive_sn_pairs",
                   blocked["adaptive"], oracles[0])
+    # the port's sorted union: numpy 2.3's union1d hashes (~10 s a call
+    # at these sizes)
     _assert_equal("quality multipass union vs its passes",
-                  blocked["multipass8"], np.union1d(*blocked["passes"]))
+                  blocked["multipass8"], union_sorted(*blocked["passes"]))
     _assert_equal("quality multipass union vs the per-pass oracles",
-                  blocked["multipass8"], np.union1d(*oracles[1:]))
+                  blocked["multipass8"], union_sorted(*oracles[1:]))
     fixed, adapt = q["fixed8"], q["adaptive"]
     if not (adapt.pairs_completeness >= fixed.pairs_completeness and
             adapt.reduction_ratio >= fixed.reduction_ratio):
@@ -1446,6 +1528,7 @@ def phase_quality():
                              f"{fixed.reduction_ratio}")
     if runs["adaptive_pruned"]["pruned"] <= 0:
         raise AssertionError("quality: evidence pruning pruned nothing")
+    lap("gates")
     rec = {"phase": "quality", "n": N_FULL, "r": R, "hops": HOPS,
            "partitioner": "pairrange", "reduced": [],
            "corpus": dict(RECALL, seed=1, n_units=tc.n_units,
@@ -1454,7 +1537,7 @@ def phase_quality():
            "windows": {"fixed": W_FIXED, "base": W_BASE, "max": W_MAX,
                        "prune_threshold": PRUNE},
            "corpus_make_s": make_s, "oracle_wait_s": oracle_wait_s,
-           "launches": launches, "runs": runs,
+           "launches": launches, "runs": runs, "laps_s": lap.seconds,
            "max_memory_allocated": peak[0], "max_memory_reserved": peak[1]}
     emit(rec)
     del tc
@@ -1929,7 +2012,7 @@ def phase_shard_map():
                              "phase")
     rec = {"phase": "shard_map", "n": N_PARITY, "world_size": 1,
            "backend": backend, "mesh": mesh.shape, "w": W,
-           "reduced": ["n 1.4M -> 100,000 (phase parity's corpus): the "
+           "reduced": ["n 1.4M -> 50,000 (phase parity's corpus): the "
                        "script's time limit"],
            "sequential_s": seq_s, "runs": rows,
            "launches": {"fused_band": launches},
@@ -1937,6 +2020,322 @@ def phase_shard_map():
            "max_memory_allocated": peak[0], "max_memory_reserved": peak[1]}
     emit(rec)
     torch.cuda.empty_cache()
+    return rec
+
+
+def _kernel_us(prof):
+    """{name: (launches, device us)} of the device events of a finished
+    ``torch.profiler`` run, read from its raw kineto events: a prefill
+    records ~600k, which ``key_averages`` parses into Python objects in
+    about a minute."""
+    import torch
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, us = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return out
+
+
+class _LMRecorded:
+    """While entered, wraps the LM path's ``attention.flash_attention``
+    (counts the calls that take K4's route, keeps the q, k, v of the first
+    such call) and ``lm.forward`` (ANDs whether every logit it returned
+    is finite into the device flag ``finite``, so no sync); with
+    ``timing`` set, CUDA events around each local and global attention
+    call and each MLP (``blocks.mlp_apply``).  All restored on exit."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention as A
+        from repro_torch.models import blocks, lm
+        self.k4_calls, self.qkv, self.timing = 0, None, False
+        self.events = {"attn_local": [], "attn_global": [], "mlp": []}
+        self.finite = torch.ones((), dtype=torch.bool, device="cuda")
+        self.saved = A.flash_attention, lm.forward, blocks.mlp_apply
+        flash, forward, mlp = self.saved
+
+        def timed(name, fn):
+            if not self.timing:
+                return fn()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            self.events[name].append((a, b))
+            return out
+
+        def flash_attention(q, k, v, **kw):
+            if q.device.type == "cuda" and A.local_attn_route(
+                    q.shape, k.shape, causal=kw.get("causal", True),
+                    window=kw.get("window", 0),
+                    q_offset=kw.get("q_offset", 0)):
+                self.k4_calls += 1
+                if self.qkv is None:
+                    self.qkv = (q, k, v, dict(kw))
+            name = "attn_local" if kw.get("window") else "attn_global"
+            return timed(name, lambda: flash(q, k, v, **kw))
+
+        def forward_(*args, **kw):
+            out = forward(*args, **kw)
+            self.finite &= torch.isfinite(out[0]).all()
+            return out
+
+        def mlp_apply(*args, **kw):
+            return timed("mlp", lambda: mlp(*args, **kw))
+
+        A.flash_attention, lm.forward, blocks.mlp_apply = \
+            flash_attention, forward_, mlp_apply
+        return self
+
+    def event_ms(self):
+        """{name: summed ms} of the timed calls (after a synchronize)."""
+        return {name: sum(a.elapsed_time(b) for a, b in pairs)
+                for name, pairs in self.events.items()}
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        from repro_torch.models import blocks, lm
+        A.flash_attention, lm.forward, blocks.mlp_apply = self.saved
+
+
+def _lm_k4_at_model_shape(qkv):
+    """K4 at the LM's own shape: one local layer's q, k, v from the real
+    prefill through ``flash_attention``'s K4 route and through the plain
+    chunk-pair scan (TOL_ATTN_MODEL, which must also reject the scan with
+    the window one key short); K4 timed on the (B*H, S, D) operands the
+    route hands it, beside its bound and the scan's time."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    q, k, v, kw = qkv
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    window, cap = kw["window"], kw["logit_softcap"]
+    plain = dict(causal=True, window=window, logit_softcap=cap)
+    got = A.flash_attention(q, k, v, **plain)
+    want = A.flash_attention_scan(q, k, v, **plain)
+    err = _hold("local_attn", got, want, TOL_ATTN_MODEL, "lm layer")
+    short_err = _must_reject(
+        "local_attn", got, A.flash_attention_scan(
+            q, k, v, **dict(plain, window=window - 1)),
+        TOL_ATTN_MODEL, "lm layer against window - 1")
+    del got, want
+    heads = lambda x: x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    qh, kh, vh = heads(q), heads(k.repeat_interleave(g, dim=2)), \
+        heads(v.repeat_interleave(g, dim=2))
+    ms = cuda_ms(lambda: ops.local_attn(qh, kh, vh, window=window,
+                                        softcap=cap), reps=10)
+    plain_ms = cuda_ms(lambda: A.flash_attention_scan(q, k, v, **plain),
+                       reps=2, warm=1)
+    bh = b * h
+    rec = {"shape": {"BH": bh, "S": s, "D": d, "window": window,
+                     "softcap": cap, "dtype": str(q.dtype).split(".")[1],
+                     "q_heads": h, "kv_heads": k.shape[2]},
+           "max_abs_err": err, "tol": TOL_ATTN_MODEL,
+           "window_minus_1_max_abs_err": short_err,
+           "kept_pairs": _kept_pairs(bh, s, window), "ms": ms,
+           "plain_scan_ms": plain_ms,
+           **_bound(4 * bh * s * d * q.element_size(),
+                    _kept_pairs(bh, s, window) * 4 * d, BF16_OPS_PER_S)}
+    del qh, kh, vh
+    return rec
+
+
+def _lm_cache_check(params, cfg, gen):
+    """Cache semantics on the card: a prefill of LM_CHECK_PROMPT tokens
+    plus LM_CHECK_DECODE decode steps give the logits of one forward over
+    the same tokens, within LM_CHECK_TOL (both sides' attention through
+    K4 on the local layers); every logit finite.  Returns the record."""
+    import torch
+    from repro_torch.models import lm
+    n = LM_CHECK_PROMPT + LM_CHECK_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (LM_CHECK_BATCH, n),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    cache = lm.cache_init(cfg, LM_CHECK_BATCH, n, torch.bfloat16,
+                          device="cuda")
+    pre, cache, _ = lm.forward(params, cfg, tokens=toks[:, :LM_CHECK_PROMPT],
+                               cache=cache, logits_last_only=True,
+                               device="cuda")
+    steps = [pre[:, -1]]
+    for t in range(LM_CHECK_PROMPT, n):
+        out, cache, _ = lm.forward(params, cfg, tokens=toks[:, t:t + 1],
+                                   cache=cache, cache_pos=t + 1,
+                                   device="cuda")
+        steps.append(out[:, -1])
+    del cache
+    got = torch.stack(steps, dim=1)               # positions P-1 .. n-1
+    full = lm.forward(params, cfg, tokens=toks, device="cuda")[0][
+        :, LM_CHECK_PROMPT - 1:n]
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(got).all()) and
+            bool(torch.isfinite(full).all())):
+        raise AssertionError("lm cache check: non-finite logits")
+    err = (got - full).abs()
+    worst = float(err.max())
+    rec = {"batch": LM_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
+           "decode_steps": LM_CHECK_DECODE, "forward_tokens": n,
+           "max_abs_err": worst, "mean_abs_err": float(err.mean()),
+           "logit_abs_max": float(full.abs().max()), "tol": LM_CHECK_TOL,
+           "argmax_agree": float((got.argmax(-1) == full.argmax(-1))
+                                 .float().mean())}
+    if not worst <= LM_CHECK_TOL:
+        raise AssertionError(f"lm cache check: prefill + decode vs forward "
+                             f"max abs err {worst} > {LM_CHECK_TOL}")
+    return rec
+
+
+def phase_lm():
+    """The LM scaffold's serving path on the card: Gemma-2-9B at full
+    width and depth (random bf16 weights from a seeded generator) through
+    ``train.steps.make_prefill_step`` then ``make_decode_step``; the
+    prefill's 21 local layers through K4 (``flash_attention``'s route),
+    its 21 global layers through the plain f32 chunk-pair scan.  Gates:
+    K4's launches = 21 x the K4-routed prefill calls, K4 against the
+    plain scan at one real layer's q, k, v, prefill + decode against one
+    forward, every logit finite, reserved memory <= RESERVED_CAP."""
+    import statistics as st
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.modules import param_bytes, param_count
+    from repro_torch.train import steps
+
+    _fresh_cache()
+    lap = _Laps()
+    cfg = get_config(LM_ARCH)
+    max_len = SHAPES["decode_32k"].seq_len
+    n_local = cfg.pattern.count("attn_local") * cfg.n_groups
+    run = RunConfig(model=cfg, shape=ShapeConfig("lm", max_len, LM_BATCH,
+                                                 "decode"))
+    gen = torch.Generator("cuda").manual_seed(LM_SEED)
+    params, init_s = wall(lambda: lm.lm_init(gen, cfg, torch.bfloat16,
+                                             device="cuda"))
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    cache = lm.cache_init(cfg, LM_BATCH, max_len, torch.bfloat16,
+                          device="cuda")
+    cache_bytes = param_bytes(cache)
+    prefill = steps.make_prefill_step(cfg, run)
+    decode = steps.make_decode_step(cfg, run)
+    lap("init")
+
+    ops.reset_launch_counts()
+    with _LMRecorded() as seen:
+        # the prefill, traced by the profiler (CUDA activity only: the
+        # kernels' device time; no measurable cost, PERF.md §6) with its
+        # attention and MLPs timed by CUDA events
+        seen.timing = True
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (tok, cache), prefill_s = wall(
+                lambda: prefill(params, {"tokens": prompt}, cache))
+        seen.timing = False
+        lap("prefill")
+        parts_ms = seen.event_ms()
+        kernels = _kernel_us(prof)
+        del prof
+        busy_us = sum(us for _, us in kernels.values())
+        k4_us = sum(us for k, (_, us) in kernels.items() if "local_attn" in k)
+        k4_in_profile = sum(n for k, (n, _) in kernels.items()
+                            if "local_attn" in k)
+        top = [[k[:80], n, us / 1e3] for k, (n, us) in sorted(
+            kernels.items(), key=lambda kv: -kv[1][1])[:8]]
+        lap("profile_read")
+        generated, decode_ms = [tok], []
+        for i in range(LM_DECODE):
+            (tok, cache), secs = wall(lambda: decode(
+                params, tok[:, None], cache, LM_PROMPT + i + 1))
+            generated.append(tok)
+            decode_ms.append(secs * 1e3)
+        lap("decode")
+        # one more decode step (the last token again), profiled: the
+        # device's share of a step (its result is not used)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, step_s = wall(lambda: decode(
+                params, tok[:, None], cache, LM_PROMPT + LM_DECODE + 1))
+        step_kernels = _kernel_us(prof)
+        del prof
+        step_busy_us = sum(us for _, us in step_kernels.values())
+        step_top = [[k[:80], n, us / 1e3] for k, (n, us) in sorted(
+            step_kernels.items(), key=lambda kv: -kv[1][1])[:6]]
+        lap("decode_profile")
+        del cache
+        serve_peak = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved())
+        emit({"phase": "lm/serve", "init_s": init_s, "prefill_s": prefill_s,
+              "decode_ms_median": st.median(decode_ms),
+              "k4_in_one_prefill_ms": k4_us / 1e3,
+              "max_memory_allocated": serve_peak[0],
+              "max_memory_reserved": serve_peak[1]})
+        torch.cuda.empty_cache()
+        check = _lm_cache_check(params, cfg, gen)
+        torch.cuda.synchronize()
+        lap("cache_check")
+        launches = ops.launch_counts()
+        routed_layers, qkv, finite = seen.k4_calls, seen.qkv, \
+            bool(seen.finite)
+    routed_calls = 3      # the prefill, the check's prefill and forward
+    if launches["local_attn"] != n_local * routed_calls or \
+            routed_layers != n_local * routed_calls or k4_in_profile != n_local:
+        raise AssertionError(
+            f"lm: K4 launched {launches['local_attn']} times, routed "
+            f"{routed_layers} layer calls, {k4_in_profile} in the profiled "
+            f"prefill; want {n_local} x {routed_calls} prefill calls")
+    if not finite:
+        raise AssertionError("lm: a forward returned non-finite logits")
+    toks = torch.stack(generated, dim=1)
+    if toks.shape != (LM_BATCH, LM_DECODE + 1) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"lm: generated tokens {toks.tolist()}")
+    torch.cuda.empty_cache()
+    k4 = _lm_k4_at_model_shape(qkv)
+    lap("k4_gate")
+    del qkv, seen
+    peak = _gb_cap("lm")
+    rec = {"phase": "lm", "arch": LM_ARCH, "seed": LM_SEED,
+           "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                      "vocab_size": cfg.vocab_size,
+                      "window_size": cfg.window_size,
+                      "pattern": list(cfg.pattern)},
+           "batch": LM_BATCH, "prompt_tokens": LM_PROMPT,
+           "cache_tokens": max_len, "decode_steps": LM_DECODE,
+           "reduced": ["batch 32 (prefill_32k) and 128 (decode_32k) -> 2: "
+                       "one card's memory holds the model plus an 11.3 GB "
+                       "global KV cache at batch 2"],
+           "params": param_count(params), "param_bytes": param_bytes(params),
+           "cache_bytes": cache_bytes, "init_s": init_s,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+           "prefill_parts_ms": parts_ms,
+           "prefill_kernel_busy_ms": busy_us / 1e3,
+           "prefill_idle_share": 1.0 - busy_us / 1e6 / prefill_s,
+           "k4_in_one_prefill_ms": k4_us / 1e3,
+           "k4_in_one_prefill_launches": k4_in_profile,
+           "prefill_top_kernels_ms": top,
+           "decode_ms_median": st.median(decode_ms),
+           "decode_ms": decode_ms,
+           "decode_tokens_per_s": LM_BATCH * 1e3 / st.median(decode_ms),
+           "decode_profiled_step_ms": step_s * 1e3,
+           "decode_step_kernel_busy_ms": step_busy_us / 1e3,
+           "decode_step_top_kernels_ms": step_top,
+           "generated": toks[:, :8].tolist(),
+           "launches": launches, "k4_routed_prefill_calls": routed_calls,
+           "k4_at_model_shape": k4, "cache_check": check,
+           "logits_finite": finite,
+           "serve_max_memory_allocated": serve_peak[0],
+           "serve_max_memory_reserved": serve_peak[1],
+           "max_memory_allocated": peak[0], "max_memory_reserved": peak[1],
+           "laps_s": lap.seconds}
+    emit(rec)
+    del params
+    _fresh_cache()
     return rec
 
 
@@ -1984,11 +2383,13 @@ def main() -> int:
     del main_sets
     served = timed("serve", phase_serve, main_rec)
     sharded = timed("shard_map", phase_shard_map)
+    served_lm = timed("lm", phase_lm)
     emit({"phase_seconds": seconds})
     # launches on each kernel's path: K1 on the resolve paths (main,
     # planned, quality, stream and its checkpointed run, serve's delta
     # calls, the shard_map runner), replays of cached shard programs
     # included; K2 and K3 on the entry point's bands, K4 on its attention
+    # and on the LM prefill's local layers
     launches = {"fused_band": sum(rec[k]["fused_band"] for rec, k in (
                     (main_rec, "kernel_launches"), (planned, "launches"),
                     (quality, "launches"), (streamed, "launches"),
@@ -1996,7 +2397,8 @@ def main() -> int:
                     (served, "launches"), (sharded, "launches"))),
                 "banded_sim": bands["launches"]["banded_sim"],
                 "jaccard_band": bands["launches"]["jaccard_band"],
-                "local_attn": attention["launches"]["local_attn"]}
+                "local_attn": attention["launches"]["local_attn"]
+                + served_lm["launches"]["local_attn"]}
     replaces = {"fused_band": "src/repro/kernels/fused_band.py:33",
                 "banded_sim": "src/repro/kernels/banded_sim.py:27",
                 "jaccard_band": "src/repro/kernels/jaccard_band.py:22",

@@ -24,6 +24,11 @@ counterpart of the same name:
                ``TraceReport`` and its Chrome export
   perf/        the executable cache: CUDA graphs of the shard programs
   launch/      meshes (process groups) for the shard_map runner
+  configs/     the LM scaffold's model and run configs (the ten archs)
+  models/      the LM scaffold's models: attention (K4 on the card's
+               sliding-window prefill), MoE, recurrent mixers, blocks,
+               the LM, and the reference's trees carried across
+  train/       the LM's serve steps (prefill, decode)
 
 Differences of form, not of result: the shard axis the reference maps is
 an explicit leading dim on every tensor of the shard program (r shards
@@ -35,7 +40,8 @@ words.
 
 Entry points (``api.resolve``, ``api.link``, ``api.resume``,
 ``api.serve``, ``stream.resolve_stream``, ``stream.link_stream``,
-``api.VmapRunner``, ``api.ShardMapRunner``) run on the CUDA device unless the caller passes
+``api.VmapRunner``, ``api.ShardMapRunner``, ``models.lm.lm_init``,
+``cache_init`` and ``forward``) run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 This package imports neither ``jax`` nor ``repro``.
 """

@@ -1,0 +1,5 @@
+"""gemma2_9b: the full config (``CONFIG``) and its CPU smoke variant."""
+from repro_torch.configs.archs import GEMMA2_9B as CONFIG
+from repro_torch.configs.base import smoke_variant
+
+SMOKE = smoke_variant(CONFIG)

@@ -1,0 +1,5 @@
+"""mixtral_8x22b: the full config (``CONFIG``) and its CPU smoke variant."""
+from repro_torch.configs.archs import MIXTRAL_8X22B as CONFIG
+from repro_torch.configs.base import smoke_variant
+
+SMOKE = smoke_variant(CONFIG)

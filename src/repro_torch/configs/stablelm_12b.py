@@ -1,0 +1,5 @@
+"""stablelm_12b: the full config (``CONFIG``) and its CPU smoke variant."""
+from repro_torch.configs.archs import STABLELM_12B as CONFIG
+from repro_torch.configs.base import smoke_variant
+
+SMOKE = smoke_variant(CONFIG)

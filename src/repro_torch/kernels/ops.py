@@ -282,14 +282,15 @@ def jaccard_band(sig: torch.Tensor, *, window: int,
                     jaccard_band_ref)
 
 
-_ATTN_HEAD_DIMS = (64, 128, 256)
+# the head dims K4 is built for
+ATTN_HEAD_DIMS = (64, 128, 256)
 
 
 def _launch_local_attn(q, k, v, window, softcap) -> torch.Tensor:
     bh, s, d = q.shape
-    if d not in _ATTN_HEAD_DIMS:
+    if d not in ATTN_HEAD_DIMS:
         raise ValueError(f"local_attn: the kernel takes head dims "
-                         f"{_ATTN_HEAD_DIMS}, got D={d}")
+                         f"{ATTN_HEAD_DIMS}, got D={d}")
     if bh >= 2**16:
         raise ValueError(f"local_attn: BH={bh} exceeds the kernel's grid")
     lib = _lib("local_attn")

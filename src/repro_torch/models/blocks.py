@@ -1,0 +1,143 @@
+"""Block composition: (sequence mixer) + (channel mixer) with pre/post
+norms — port of ``repro.models.blocks``.
+
+A *group* is one period of ``cfg.pattern`` (e.g. gemma2: (local, global);
+recurrentgemma: (rglru, rglru, attn_local)); the LM loops over stacked
+groups.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec
+from repro_torch.models.modules import (act_fn, dense_apply, dense_init,
+                                        no_rules, norm_apply, norm_init)
+
+ATTN_KINDS = ("attn_global", "attn_local")
+
+
+# -- dense MLP -----------------------------------------------------------------
+
+def mlp_init(key, cfg, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    down_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {"w_gate": dense_init(key, d, f, dtype),
+                "w_up": dense_init(key, d, f, dtype),
+                "w_down": dense_init(key, f, d, dtype, scale=down_scale)}
+    return {"w_up": dense_init(key, d, f, dtype),
+            "w_down": dense_init(key, f, d, dtype, scale=down_scale)}
+
+
+def mlp_apply(p, x, cfg, *, rules=None):
+    no_rules(rules, "mlp_apply")
+    act = act_fn("silu" if cfg.mlp == "swiglu" else "gelu")
+    if cfg.mlp in ("swiglu", "geglu"):
+        h = act(dense_apply(p["w_gate"], x)) * dense_apply(p["w_up"], x)
+    else:
+        h = act(dense_apply(p["w_up"], x))
+    return dense_apply(p["w_down"], h)
+
+
+# -- one block -------------------------------------------------------------------
+
+_MIXER_INIT = {
+    "attn_global": attn.attn_init,
+    "attn_local": attn.attn_init,
+    "mlstm": rec.mlstm_init,
+    "slstm": rec.slstm_init,
+    "rglru": rec.rglru_init,
+}
+
+
+def block_has_mlp(cfg, kind: str) -> bool:
+    # xLSTM blocks carry their own projections; d_ff == 0 disables the MLP.
+    if cfg.d_ff == 0 and cfg.moe is None:
+        return False
+    return True
+
+
+def block_init(key, cfg, kind: str, dtype):
+    p: dict[str, Any] = {
+        "norm1": norm_init(key, cfg.d_model, dtype, kind=cfg.norm),
+        "mixer": _MIXER_INIT[kind](key, cfg, dtype),
+    }
+    if cfg.post_block_norm:
+        p["norm1_post"] = norm_init(key, cfg.d_model, dtype, kind=cfg.norm)
+    if block_has_mlp(cfg, kind):
+        if not cfg.parallel_block:
+            p["norm2"] = norm_init(key, cfg.d_model, dtype, kind=cfg.norm)
+        if cfg.moe is not None:
+            p["mlp"] = moe_mod.moe_init(key, cfg, dtype)
+        else:
+            p["mlp"] = mlp_init(key, cfg, dtype)
+        if cfg.post_block_norm:
+            p["norm2_post"] = norm_init(key, cfg.d_model, dtype,
+                                        kind=cfg.norm)
+    return p
+
+
+def block_cache_init(cfg, kind: str, batch: int, max_len: int,
+                     dtype=torch.bfloat16, *, device=None):
+    if kind in ATTN_KINDS:
+        return attn.make_attn_cache(cfg, batch, max_len, dtype,
+                                    local=(kind == "attn_local"),
+                                    device=device)
+    if kind == "mlstm":
+        return rec.mlstm_state_init(cfg, batch, device=device)
+    if kind == "slstm":
+        return rec.slstm_state_init(cfg, batch, device=device)
+    if kind == "rglru":
+        return rec.rglru_state_init(cfg, batch, device=device)
+    raise ValueError(kind)
+
+
+def block_apply(p, x, cfg, kind: str, *, rules=None, cache=None,
+                cache_pos=None, positions=None, chunk_q=512, chunk_kv=1024):
+    """Returns (x_out, new_cache, aux_loss)."""
+    no_rules(rules, "block_apply")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+
+    if kind in ATTN_KINDS:
+        mix, new_cache = attn.attn_apply(
+            p["mixer"], h, cfg, local=(kind == "attn_local"),
+            positions=positions, cache=cache, cache_pos=cache_pos,
+            chunk_q=chunk_q, chunk_kv=chunk_kv)
+    elif kind == "mlstm":
+        mix, new_cache = rec.mlstm_apply(p["mixer"], h, cfg, state=cache)
+    elif kind == "slstm":
+        mix, new_cache = rec.slstm_apply(p["mixer"], h, cfg, state=cache)
+    elif kind == "rglru":
+        mix, new_cache = rec.rglru_apply(p["mixer"], h, cfg, state=cache)
+    else:
+        raise ValueError(kind)
+
+    if cfg.post_block_norm:
+        mix = norm_apply(p["norm1_post"], mix, kind=cfg.norm, eps=cfg.norm_eps)
+
+    if cfg.parallel_block and block_has_mlp(cfg, kind):
+        # shared-norm parallel attn+mlp (gptj/stablelm style)
+        if cfg.moe is not None:
+            mo, aux, _ = moe_mod.moe_apply(p["mlp"], h, cfg)
+        else:
+            mo = mlp_apply(p["mlp"], h, cfg)
+        return x + mix + mo, new_cache, aux
+
+    x = x + mix
+    if block_has_mlp(cfg, kind):
+        h2 = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
+        if cfg.moe is not None:
+            mo, aux, _ = moe_mod.moe_apply(p["mlp"], h2, cfg)
+        else:
+            mo = mlp_apply(p["mlp"], h2, cfg)
+        if cfg.post_block_norm:
+            mo = norm_apply(p["norm2_post"], mo, kind=cfg.norm,
+                            eps=cfg.norm_eps)
+        x = x + mo
+    return x, new_cache, aux

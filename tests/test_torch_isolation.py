@@ -30,6 +30,10 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.obs, repro_torch.serve\n"
         "import repro_torch.launch, repro_torch.launch.mesh\n"
         "import repro_torch.perf.cache, repro_torch.core.collectives\n"
+        "import repro_torch.configs, repro_torch.configs.gemma2_9b\n"
+        "import repro_torch.models, repro_torch.models.lm\n"
+        "import repro_torch.models.convert, repro_torch.train\n"
+        "import repro_torch.train.steps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -82,6 +86,25 @@ def test_entry_points_default_to_cuda_and_raise_without_card():
     # the explicit CPU request runs
     res = TA.resolve(_ents(), cfg, device="cpu")
     assert res.blocking.pairs
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import lm
+    cfg = smoke_variant(get_config("gemma2-9b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.lm_init(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.cache_init(cfg, 1, 8)
+    params = lm.lm_init(0, cfg, device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.forward(params, cfg, tokens=toks)
+    # the explicit CPU request runs
+    logits, _, _ = lm.forward(params, cfg, tokens=toks, device="cpu")
+    assert logits.shape == (1, 8, cfg.vocab_size)
 
 
 def test_kernel_wrapper_raises_for_non_cpu_non_cuda_tensors():

@@ -499,3 +499,53 @@ def test_banded_sim_dot_equals_fused_band_cosine_half(cuda):
         torch.arange(9, device=cuda) < 5000
     cos = torch.where(m, torch.clamp(0.5 * (k2 + 1.0), 0.0, 1.0), 0.0)
     assert torch.equal(k1, cos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_k4_route_matches_plain_scan(cuda, dtype):
+    """``models.attention.flash_attention`` on the card at a small
+    Gemma-2-shaped case (GQA 4:2, head dim 256, window, softcap 50) takes
+    K4 (one launch) and equals the plain chunk-pair scan on the same
+    tensors: 2e-5 in f32, 3e-2 in bf16 (K4's tolerances)."""
+    from repro_torch.models import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, tol = (torch.float32, 2e-5) if dtype == "f32" \
+        else (torch.bfloat16, 3e-2)
+    rng = np.random.default_rng(256)
+    q = torch.from_numpy(rng.normal(size=(2, 512, 4, 256)).astype(
+        np.float32)).to(cuda).to(tdt)
+    k, v = (torch.from_numpy(rng.normal(size=(2, 512, 2, 256)).astype(
+        np.float32)).to(cuda).to(tdt) for _ in range(2))
+    kw = dict(causal=True, window=192, logit_softcap=50.0)
+    assert A.local_attn_route(q.shape, k.shape, causal=True, window=192)
+    got = _launched_once("local_attn", lambda: A.flash_attention(
+        q, k, v, **kw))
+    want = A.flash_attention_scan(q, k, v, chunk_q=128, chunk_kv=256, **kw)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(to_np(got.float()), to_np(want.float()),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_lm_forward_on_card_equals_cpu(cuda):
+    """A Gemma-2-patterned LM (head dim 64, window 64) in f32 on the card,
+    its local layers through K4, equals the same weights on the CPU (the
+    plain scan everywhere) within 1e-4; K4 runs once per local layer."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import lm
+    from repro_torch.models.modules import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_variant(get_config("gemma2-9b")),
+                              head_dim=64, window_size=64)
+    cpu = lm.lm_init(0, cfg, torch.float32, device="cpu")
+    card = tree_map(lambda x: x.to(cuda), cpu)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 256)).astype(np.int32))
+    before = ops.launch_counts()["local_attn"]
+    got, _, _ = lm.forward(card, cfg, tokens=toks, device=cuda)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["local_attn"] - before == cfg.n_groups
+    want, _, _ = lm.forward(cpu, cfg, tokens=toks, device="cpu")
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=1e-4)
