@@ -103,26 +103,46 @@ Run from the root of a checkout.  Phases, one JSON line each:
               prefill traced by torch.profiler (CUDA activity: K4's time
               in it) with its attention and MLPs timed by CUDA events;
               one decode step profiled; K4 held against the plain scan at one real
-              layer's q, k, v and timed there beside its bound; prefill +
-              decode against one forward (LM_CHECK_TOL); every logit
-              finite
+              layer's q, k, v and timed there beside its bound, in turns
+              with compiled flex_attention (softcap as score_mod);
+              prefill + decode against one forward (LM_CHECK_TOL); every
+              logit finite
+ 14. train    the LM scaffold's training path (``train.steps``,
+              ``train.optim``, ``train.checkpoint``, ``train.loop``,
+              ``launch.train``): Phi-4-mini's 100m preset in f32, two
+              train steps on the card against the same two on the CPU;
+              ``launch.train.main`` at --preset 100m --dedup on the card
+              under deterministic algorithms, straight, with a fault
+              injected, and killed then resumed (--resume), the three
+              ending on one checkpoint bit for bit, the loss falling;
+              Phi-4-mini at full width and depth (bf16, a 4,096-token
+              sequence, remat="block"): cold step, timed steps, one split
+              by CUDA events (forward + backward, optimizer), one
+              profiled; finite losses, the first update lowering the
+              repeated batch's loss, the step-0 loss against an f32
+              forward on the same weights
+              (TRAIN_BF16_LOSS_TOL); no kernel launched (K4 has no
+              backward: training takes the plain scan)
 
-Phases 4, 5 and 7-13 each set every launch count to 0 just before they
+Phases 4, 5 and 7-14 each set every launch count to 0 just before they
 drive their path and read the counts just after; each raises if a kernel
 of its path was not launched, phases 8 and 9 if K1 was not launched on
 every resolve (every pass of a multi-pass one), phase 10 if it was not
 launched on every chunk it resolved, phase 11 if it was not launched
 on every delta call, phase 12 if not on every pallas shard program, and
-phase 13 unless K4 ran 21 times in each of its K4-routed prefill calls.
+phase 13 unless K4 ran 21 times in each of its K4-routed prefill calls,
+and phase 14 if any kernel was launched.
 A replayed CUDA graph launches without the host: the cache adds the
 launches its capture recorded on every replay, so the counts hold for
-replays too.  Phases 7-13 start from an empty executable cache and raise
+replays too.  Phases 7-14 start from an empty executable cache and raise
 if they reserved more than RESERVED_CAP bytes of device memory.  Then
 come each phase's seconds, the kernel table ``{"kernels": [...]}``,
 the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
 phase raises on failure, so the script exits non-zero and prints no result
 line.  It exits non-zero without a CUDA card, and where ``src/repro_torch``
-is not beside it.
+is not beside it.  Every gate reads a public pair set's packed uint64
+form (``_PackedSets``), kept from where the set was built, instead of
+packing its tuples again.
 
 TF32 is switched off for matmuls and cuDNN (the cascade gate's slack is
 GATE_EPS = 1e-5, K4's f32 tolerance 2e-5; the kernels use plain IEEE f32
@@ -205,6 +225,35 @@ LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_DECODE = 1, 8_192, 256
 # f32 scan against the f32 decode attention); set above the drift read on
 # the card (PERF.md §6) with room
 LM_CHECK_TOL = 0.25
+# phase train: Phi-4-mini (the train launcher's default arch), three parts.
+# (1) card against CPU: the launcher's 100m preset in f32, 2 train steps
+# on the launcher's batch shape, both devices from one seeded state
+TRAIN_ARCH, TRAIN_SEED = "phi4-mini-3.8b", 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_PARITY_STEPS = 8, 256, 2
+# card against CPU after 2 f32 steps: the loss and grad norm are sums of
+# the same f32 products in another order (rel 1e-5 read as ~1e-6 on the
+# CPU against XLA); a param moves by lr x an Adam step g / (|g| + eps),
+# which differs by ~lr x (relative gradient error) except where |g| is
+# within rounding of eps: there it may take any value up to the largest
+# step, so TRAIN_FLIP_SHARE of the params may lie beyond TRAIN_PARAM_ATOL
+# (but within 2.2 x the summed lr); the moments within TRAIN_MOMENT_RTOL
+# of their leaf's largest entry
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+TRAIN_PARAM_ATOL, TRAIN_FLIP_SHARE, TRAIN_MOMENT_RTOL = 1e-6, 1e-4, 1e-3
+# (2) the launcher end to end at --preset 100m --dedup: 30 steps with a
+# checkpoint every 10; once more with a fault injected at step 15; once
+# killed after step 20 (its checkpoint written) and resumed with --resume
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT, TRAIN_KILL_AFTER = \
+    30, 10, 15, 20
+# (3) Phi-4-mini at full width and depth (src/repro/configs/archs.py,
+# 4,450,418,688 parameters), bf16 weights from a seeded generator, on
+# train_4k's sequence of 4,096 at batch 1 (cut from its global batch of
+# 256); one cold step, then TRAIN_FULL_STEPS timed steps of one repeated
+# batch and one profiled step
+TRAIN_FULL_SEQ, TRAIN_FULL_BATCH, TRAIN_FULL_STEPS = 4096, 1, 4
+# |bf16 step-0 loss - f32 forward loss| on the same weights and batch:
+# below one bf16 ulp of the loss (~12.8 at random weights: 2**-4)
+TRAIN_BF16_LOSS_TOL = 0.05
 # the delta calls' mean shard_program ms in phase serve of an earlier
 # version of this script, when every program ran eagerly (PERF.md §5);
 # a constant, printed beside this run's readings, never measured here
@@ -925,8 +974,7 @@ def phase_parity():
                 device="cuda"))
             label = f"parity {variant}/{engine}"
             _zero_overflow(res, label)
-            if res.blocking.pairs != seq.blocking.pairs or \
-                    res.matches != seq.matches:
+            if not _same_sets(res, seq):
                 raise AssertionError(
                     f"{label}: blocked {len(res.blocking.pairs)} vs "
                     f"{len(seq.blocking.pairs)}, matched {len(res.matches)} "
@@ -1110,16 +1158,14 @@ def phase_main():
             replay_launches != 1:
         raise AssertionError(f"main steady resolve: {steady_perf}, K1 "
                              f"launched {replay_launches} times")
-    if steady.blocking.pairs != res.blocking.pairs or \
-            steady.matches != res.matches:
+    if not _same_sets(steady, res):
         raise AssertionError("main: the replayed resolve's sets differ")
     del steady
     cached_peak = _gb_cap("main (cached)")
     lap("steady")
     breakdown, traced = _breakdown(ents, cfg)
     # invariant 12: the traced resolve gives the untraced sets
-    if traced.blocking.pairs != res.blocking.pairs or \
-            traced.matches != res.matches:
+    if not _same_sets(traced, res):
         raise AssertionError(
             f"traced resolve: blocked {len(traced.blocking.pairs)} vs "
             f"{len(res.blocking.pairs)}, matched {len(traced.matches)} vs "
@@ -1143,8 +1189,7 @@ def phase_main():
     eager_cfg = cfg.with_(jit_cache=False)
     eager, eager_s = wall(lambda: run(eager_cfg))
     eager_peak = _gb_cap("main (jit_cache=False)")
-    if eager.blocking.pairs != res.blocking.pairs or \
-            eager.matches != res.matches:
+    if not _same_sets(eager, res):
         raise AssertionError("main: the eager resolve's sets differ from "
                              "the cached one's")
     eager_perf = _perf(eager)
@@ -1152,8 +1197,7 @@ def phase_main():
     lap("eager")
 
     scan, scan_s = wall(lambda: run(eager_cfg.with_(band_engine="scan")))
-    if scan.matches != res.matches or scan.blocking.pairs != \
-            res.blocking.pairs:
+    if not _same_sets(scan, res):
         raise AssertionError(
             f"scan vs pallas: matched {len(scan.matches)} vs "
             f"{len(res.matches)}, blocked {len(scan.blocking.pairs)} vs "
@@ -1212,10 +1256,62 @@ def _counted_resolve(ents, cfg, label, passes=1):
     return res, secs
 
 
+class _PackedSets:
+    """The packed form of every public pair set.  Every resolve, stream
+    and serve result builds its frozensets of (lo, hi) tuples in one
+    place, ``api.results.packed_to_frozenset``, from a packed uint64
+    array; while installed, the wrapper keeps that array (sorted and
+    distinct) beside the frozenset it built, for as long as the set
+    lives.  A gate then reads a set's packed form here instead of packing
+    its tuples again (13-18 s for 12.6M), and compares two sets as their
+    packed arrays, which stand one-to-one for them, instead of as
+    frozensets (~10 s); a set built elsewhere (a multi-pass union) is
+    packed once."""
+
+    def __init__(self):
+        self.arrays, self.saved = {}, None
+
+    def install(self):
+        import weakref
+
+        import numpy as np
+        from repro_torch.api import results as RES
+        self.saved = build = RES.packed_to_frozenset
+
+        def packed_to_frozenset(packed):
+            pairs = build(packed)
+            packed = np.asarray(packed, RES.PACKED_DTYPE)
+            if not np.all(packed[1:] > packed[:-1]):
+                packed = RES.unique_packed(packed)
+            key = id(pairs)
+            self.arrays[key] = (weakref.ref(
+                pairs, lambda _, key=key: self.arrays.pop(key, None)), packed)
+            return pairs
+
+        RES.packed_to_frozenset = packed_to_frozenset
+
+    def get(self, pairs):
+        """The sorted packed uint64 array of the set ``pairs``."""
+        from repro_torch.api.results import pack_pair_set
+        ref, packed = self.arrays.get(id(pairs), (None, None))
+        if ref is not None and ref() is pairs:
+            return packed
+        return pack_pair_set(pairs)
+
+
+PACKED = _PackedSets()
+
+
 def _packed_sets(res):
     """(blocked, matched) of a result as sorted packed uint64 arrays."""
-    from repro_torch.api.results import pack_pair_set
-    return pack_pair_set(res.blocking.pairs), pack_pair_set(res.matches)
+    return PACKED.get(res.blocking.pairs), PACKED.get(res.matches)
+
+
+def _same_sets(a, b) -> bool:
+    """Whether two results hold equal blocked and equal matched sets."""
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(_packed_sets(a),
+                                                    _packed_sets(b)))
 
 
 def _oracle_packed(keys, eids, window=None, weff=None):
@@ -1448,7 +1544,7 @@ def phase_quality():
     import numpy as np
     import torch
     from repro_torch import api, quality
-    from repro_torch.api.results import pack_pair_set, union_sorted
+    from repro_torch.api.results import union_sorted
     from repro_torch.balance import profile_keys
     from repro_torch.core import keys as K
     from repro_torch.data import labeled_corpus
@@ -1489,9 +1585,9 @@ def phase_quality():
             lap("resolve")
             for part in getattr(res, "passes", (res,)):
                 _zero_overflow(part, f"quality {label}")
-            blocked[label] = pack_pair_set(res.blocking.pairs)
+            blocked[label] = PACKED.get(res.blocking.pairs)
             if label == "multipass8":
-                blocked["passes"] = [pack_pair_set(p.blocking.pairs)
+                blocked["passes"] = [PACKED.get(p.blocking.pairs)
                                      for p in res.passes]
             q[label] = quality.evaluate(blocked[label], tc)
             runs[label] = {"resolve_s": secs,
@@ -1742,14 +1838,13 @@ def _check_edit(label, svc, res, prev):
     disjoint from prev and retired inside it, and a pair id for every new
     pair.  Returns the served sets now."""
     import numpy as np
-    from repro_torch.api.results import (pack_pair_set, setdiff_sorted,
-                                         union_sorted)
+    from repro_torch.api.results import setdiff_sorted, union_sorted
     now = (svc.packed_pairs, svc.packed_matches)
     for (new, gone), before, after, what in (
             ((res.new_pairs, res.retired_pairs), prev[0], now[0], "pairs"),
             ((res.new_matches, res.retired_matches), prev[1], now[1],
              "matches")):
-        new, gone = pack_pair_set(new), pack_pair_set(gone)
+        new, gone = PACKED.get(new), PACKED.get(gone)
         if setdiff_sorted(gone, before).size or \
                 setdiff_sorted(new, before).size != new.size or \
                 not np.array_equal(union_sorted(setdiff_sorted(before, gone),
@@ -2105,7 +2200,8 @@ def _lm_k4_at_model_shape(qkv):
     prefill through ``flash_attention``'s K4 route and through the plain
     chunk-pair scan (TOL_ATTN_MODEL, which must also reject the scan with
     the window one key short); K4 timed on the (B*H, S, D) operands the
-    route hands it, beside its bound and the scan's time."""
+    route hands it, in turns with compiled flex_attention there, beside
+    its bound and the scan's time."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
@@ -2125,8 +2221,15 @@ def _lm_k4_at_model_shape(qkv):
     heads = lambda x: x.transpose(1, 2).reshape(b * h, s, d).contiguous()
     qh, kh, vh = heads(q), heads(k.repeat_interleave(g, dim=2)), \
         heads(v.repeat_interleave(g, dim=2))
-    ms = cuda_ms(lambda: ops.local_attn(qh, kh, vh, window=window,
-                                        softcap=cap), reps=10)
+    k4 = lambda: ops.local_attn(qh, kh, vh, window=window, softcap=cap)
+    # the library yardstick at this shape: compiled flex_attention with
+    # the band as a block mask and the softcap as a score_mod, in turns
+    # with K4
+    flex = _flex(qh, kh, vh, window, cap)
+    flex_err = _library_err(flex, k4(), ATTN_HEADS_CHECKED)
+    turns = _in_turns([("kernel", k4)] + ([("flex_attention", flex)]
+                                           if flex is not None else []),
+                      reps=10)
     plain_ms = cuda_ms(lambda: A.flash_attention_scan(q, k, v, **plain),
                        reps=2, warm=1)
     bh = b * h
@@ -2135,11 +2238,15 @@ def _lm_k4_at_model_shape(qkv):
                      "q_heads": h, "kv_heads": k.shape[2]},
            "max_abs_err": err, "tol": TOL_ATTN_MODEL,
            "window_minus_1_max_abs_err": short_err,
-           "kept_pairs": _kept_pairs(bh, s, window), "ms": ms,
+           "kept_pairs": _kept_pairs(bh, s, window),
+           "ms": statistics.mean(turns["kernel"]),
+           "flex_attention_ms": statistics.mean(turns["flex_attention"])
+           if flex is not None else None,
+           "flex_vs_kernel_max_abs_err": flex_err, "turns_ms": turns,
            "plain_scan_ms": plain_ms,
            **_bound(4 * bh * s * d * q.element_size(),
                     _kept_pairs(bh, s, window) * 4 * d, BF16_OPS_PER_S)}
-    del qh, kh, vh
+    del qh, kh, vh, flex
     return rec
 
 
@@ -2339,11 +2446,408 @@ def phase_lm():
     return rec
 
 
+class _Killed(BaseException):
+    """A kill of the train launcher's process, simulated: no handler of
+    the loop catches it."""
+
+
+def _train_launch(args, *, fault_at=None, kill_after=None):
+    """``launch.train.main(args)``, its output captured; ``fault_at``: the
+    loop's ``inject_fault_at``; ``kill_after``: the loop is killed when
+    it asks for step ``kill_after + 1`` (its pending checkpoint write
+    finished first).  Returns (stats or None, the printed lines)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch
+    loop = launch.train_loop
+
+    def train_loop(train_step, state, batcher, ckpt, cfg, **kw):
+        calls = [0]
+
+        def step(st, batch):
+            calls[0] += 1
+            if kill_after is not None and calls[0] > kill_after:
+                raise _Killed()
+            return train_step(st, batch)
+        try:
+            return loop(step, state, batcher, ckpt, cfg,
+                        inject_fault_at=fault_at, **kw)
+        finally:
+            ckpt.wait()
+
+    out = io.StringIO()
+    launch.train_loop = train_loop
+    try:
+        with contextlib.redirect_stdout(out):
+            stats = launch.main(args)
+    except _Killed:
+        stats = None
+    finally:
+        launch.train_loop = loop
+    return stats, out.getvalue().splitlines()
+
+
+def _same_checkpoints(a, b) -> int:
+    """Raise unless two checkpoint files hold the same arrays bit for bit;
+    returns the number of arrays."""
+    import numpy as np
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files):
+            raise AssertionError(f"{a} and {b} hold other leaves")
+        for k in x.files:
+            if x[k].dtype != y[k].dtype or x[k].tobytes() != y[k].tobytes():
+                raise AssertionError(f"{a} and {b} differ at {k}")
+        return len(x.files)
+
+
+def _train_parity():
+    """Part 1: two train steps of the launcher's 100m preset in f32, on the
+    card and on the CPU from one seeded state and the launcher's batches:
+    loss, grad norm, lr and every leaf of the state within the stated
+    tolerances."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.corpus import TokenBatcher, synth_corpus
+    from repro_torch.launch.train import hundred_m_variant
+    from repro_torch.models.modules import tree_items, tree_map
+    from repro_torch.train import optim, steps
+
+    cfg = hundred_m_variant(get_config(TRAIN_ARCH))
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "100m", TRAIN_SEQ, TRAIN_BATCH, "train"), remat="block")
+    oc = optim.OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    cpu = steps.train_state_init(TRAIN_SEED, cfg, torch.float32,
+                                 device="cpu")
+    card = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    docs = synth_corpus(0, n_docs=4096, doc_len=TRAIN_SEQ,
+                        vocab=cfg.vocab_size, dup_frac=0.25)
+    batcher = TokenBatcher(docs, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    step = steps.make_train_step(cfg, run, None, oc)
+    rows, lr_sum = [], 0.0
+    for i in range(TRAIN_PARITY_STEPS):
+        batch = batcher.batch(i)
+        (_, got), card_s = wall(lambda: step(card, batch))
+        t0 = time.perf_counter()
+        _, want = step(cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        got = {k: float(v) for k, v in got.items()}
+        want = {k: float(v) for k, v in want.items()}
+        if not (abs(got["loss"] - want["loss"]) <= TRAIN_LOSS_RTOL
+                * abs(want["loss"]) and abs(got["grad_norm"] -
+                                            want["grad_norm"])
+                <= TRAIN_NORM_RTOL * want["grad_norm"]
+                and abs(got["lr"] - want["lr"]) <= 1e-6 * want["lr"]):
+            raise AssertionError(f"train parity step {i}: card {got}, cpu "
+                                 f"{want}")
+        lr_sum += want["lr"]
+        rows.append({"step": i, "card": got, "cpu": want, "card_s": card_s,
+                     "cpu_s": cpu_s})
+    worst = {"param_max_abs_err": 0.0, "moment_rel_err": 0.0}
+    far = total = 0
+    want_items = dict(tree_items(cpu))
+    for k, t in tree_items(card):
+        g, w = t.cpu().double().numpy(), want_items[k].double().numpy()
+        d = np.abs(g - w)
+        if k.startswith("['params']"):
+            far += int((d > TRAIN_PARAM_ATOL).sum())
+            total += d.size
+            worst["param_max_abs_err"] = max(worst["param_max_abs_err"],
+                                             float(d.max()))
+            if d.max() > 2.2 * lr_sum:
+                raise AssertionError(f"train parity {k}: max abs err "
+                                     f"{d.max()} > 2.2 x lr {lr_sum}")
+        elif k.startswith("['opt']['step']"):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"train parity {k}: {g} vs {w}")
+        else:
+            rel = float(d.max()) / max(float(np.abs(w).max()), 1e-30)
+            worst["moment_rel_err"] = max(worst["moment_rel_err"], rel)
+            if rel > TRAIN_MOMENT_RTOL:
+                raise AssertionError(f"train parity {k}: {rel} of its "
+                                     f"largest entry")
+    if far > TRAIN_FLIP_SHARE * total:
+        raise AssertionError(f"train parity: {far} of {total} params beyond "
+                             f"{TRAIN_PARAM_ATOL}")
+    return {"arch": TRAIN_ARCH, "preset": "100m", "dtype": "float32",
+            "params": total, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "remat": "block", "steps": rows, **worst,
+            "params_beyond_atol": far,
+            "tol": {"loss_rtol": TRAIN_LOSS_RTOL,
+                    "grad_norm_rtol": TRAIN_NORM_RTOL,
+                    "param_atol": TRAIN_PARAM_ATOL,
+                    "param_far_share": TRAIN_FLIP_SHARE,
+                    "moment_rtol": TRAIN_MOMENT_RTOL}}
+
+
+def _train_launcher(root):
+    """Part 2: ``launch.train.main`` at --preset 100m --dedup on the card,
+    under deterministic algorithms (the embedding's backward scatters with
+    atomics otherwise): a straight run, a run with a fault injected, and a
+    run killed after step TRAIN_KILL_AFTER then resumed with --resume.
+    Gates: the loss falls, one restore after the fault, and the faulted
+    and the resumed runs end on the straight run's checkpoint bit for
+    bit."""
+    import shutil
+
+    import numpy as np
+    import torch
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", TRAIN_ARCH, "--preset", "100m", "--dedup",
+            "--steps", str(TRAIN_STEPS), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--seq-len", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH), "--device", "cuda"]
+    final = f"step_{TRAIN_STEPS}.npz"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (straight, lines), straight_s = wall(lambda: _train_launch(
+            args + ["--ckpt-dir", str(root / "straight")]))
+        (faulted, _), faulted_s = wall(lambda: _train_launch(
+            args + ["--ckpt-dir", str(root / "faulted")],
+            fault_at=TRAIN_FAULT_AT))
+        (killed, _), killed_s = wall(lambda: _train_launch(
+            args + ["--ckpt-dir", str(root / "resumed")],
+            kill_after=TRAIN_KILL_AFTER))
+        (resumed, _), resumed_s = wall(lambda: _train_launch(
+            args + ["--ckpt-dir", str(root / "resumed"), "--resume"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    first, last = np.mean(straight.losses[:5]), np.mean(straight.losses[-5:])
+    if straight.steps != TRAIN_STEPS or not last < first:
+        raise AssertionError(f"train launcher: {straight.steps} steps, mean "
+                             f"loss {first} over the first 5, {last} over "
+                             f"the last 5")
+    if faulted.restores != 1 or killed is not None or \
+            resumed.steps != TRAIN_STEPS - TRAIN_KILL_AFTER:
+        raise AssertionError(f"train launcher: {faulted.restores} restores "
+                             f"after the fault, resumed {resumed.steps} "
+                             f"steps")
+    leaves = _same_checkpoints(root / "straight" / final,
+                               root / "faulted" / final)
+    _same_checkpoints(root / "straight" / final, root / "resumed" / final)
+    ckpt_bytes = (root / "straight" / final).stat().st_size
+    rec = {"args": args, "dedup": next(x for x in lines
+                                       if x.startswith("[dedup]")),
+           "losses": straight.losses, "first5_mean": float(first),
+           "last5_mean": float(last),
+           "step_ms_median": statistics.median(straight.step_times) * 1e3,
+           "straight_s": straight_s, "faulted_s": faulted_s,
+           "faulted_restores": faulted.restores, "fault_at": TRAIN_FAULT_AT,
+           "killed_after": TRAIN_KILL_AFTER, "killed_s": killed_s,
+           "resumed_s": resumed_s, "resumed_steps": resumed.steps,
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_leaves": leaves,
+           "faulted_equals_straight": True, "resumed_equals_straight": True}
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def _fingerprint(params) -> list:
+    """A per-leaf fingerprint of a param tree: f64 sums, a slice of 2**24
+    elements at a time (an f64 copy of Phi-4-mini's largest leaf would be
+    6.4 GB)."""
+    from repro_torch.models.modules import tree_items
+    return [sum(float(s.double().sum()) for s in t.reshape(-1).split(1 << 24))
+            for _, t in tree_items(params)]
+
+
+def _train_full():
+    """Part 3: Phi-4-mini at full width and depth, bf16 weights from a
+    seeded generator: a cold step, TRAIN_FULL_STEPS timed steps and one
+    profiled step on one repeated batch of train_4k's sequence; one step
+    split by CUDA events into forward + backward and the optimizer; then,
+    the train state freed, the same weights drawn again, in f32, and their
+    loss on the batch under no_grad against the step-0 bf16 loss.  Gates:
+    every loss finite, the first update lowering the batch's loss (a
+    single repeated sequence at lr 3e-4 oscillates after it), the f32
+    loss within TRAIN_BF16_LOSS_TOL, reserved memory <= RESERVED_CAP."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models.modules import param_bytes, param_count, tree_map
+    from repro_torch.train import optim, steps
+
+    lap = _Laps()
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train_4k", TRAIN_FULL_SEQ, TRAIN_FULL_BATCH, "train"), remat="block")
+    oc = optim.OptConfig(lr=3e-4, warmup_steps=2)
+    gen = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+    state, init_s = wall(lambda: steps.train_state_init(
+        gen, cfg, torch.bfloat16, device="cuda"))
+    n_params = param_count(state["params"])
+    state_bytes = param_bytes(state)
+    weights0 = _fingerprint(state["params"])
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_FULL_BATCH,
+                                             TRAIN_FULL_SEQ),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    labels = torch.cat([toks[:, 1:], torch.full(
+        (TRAIN_FULL_BATCH, 1), -1, dtype=torch.int32, device="cuda")], 1)
+    batch = {"tokens": toks, "labels": labels}
+    step = steps.make_train_step(cfg, run, None, oc)
+    lap("init")
+    # the step updates ``state`` in place and returns it: keep no second
+    # reference, so that freeing ``state`` frees the 44.5 GB
+    m, cold_s = wall(lambda: step(state, batch)[1])
+    losses, lrs = [float(m["loss"])], [float(m["lr"])]
+    lap("cold")
+    step_s = []
+    for _ in range(TRAIN_FULL_STEPS):
+        m, secs = wall(lambda: step(state, batch)[1])
+        step_s.append(secs)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+    lap("timed")
+    # one step split by CUDA events around the optimizer update
+    update = optim.adamw_update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def timed_update(*a, **kw):
+        ev[1].record()
+        out = update(*a, **kw)
+        ev[2].record()
+        return out
+    optim.adamw_update = timed_update
+    try:
+        ev[0].record()
+        m, split_s = wall(lambda: step(state, batch)[1])
+    finally:
+        optim.adamw_update = update
+    fwd_bwd_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    losses.append(float(m["loss"]))
+    lap("split")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m, prof_s = wall(lambda: step(state, batch)[1])
+    kernels = _kernel_us(prof)
+    del prof
+    losses.append(float(m["loss"]))
+    busy_us = sum(us for _, us in kernels.values())
+    top = [[k[:80], n, us / 1e3] for k, (n, us) in sorted(
+        kernels.items(), key=lambda kv: -kv[1][1])[:10]]
+    lap("profile")
+    peak = _gb_cap("train/full")
+    del state, m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the step-0 loss again, in f32, on the same weights (drawn again from
+    # the seed), the optimizer state freed
+    gen = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+    params = lm.lm_init(gen, cfg, torch.bfloat16, device="cuda")
+    if _fingerprint(params) != weights0:
+        raise AssertionError("train full: the weights drawn again differ")
+    params = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        f32_loss, _ = lm.lm_loss(params, cfg, batch, remat="none",
+                                 device="cuda")
+    f32_loss = float(f32_loss)
+    del params
+    check_peak = _gb_cap("train/full f32 check")
+    torch.cuda.empty_cache()
+    lap("f32_check")
+    if not all(math.isfinite(x) for x in losses + [f32_loss]):
+        raise AssertionError(f"train full: losses {losses}, f32 {f32_loss}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"train full: the first update raised the "
+                             f"repeated batch's loss {losses[0]} -> "
+                             f"{losses[1]}")
+    if not abs(losses[0] - f32_loss) <= TRAIN_BF16_LOSS_TOL:
+        raise AssertionError(f"train full: step-0 bf16 loss {losses[0]} vs "
+                             f"f32 {f32_loss} > {TRAIN_BF16_LOSS_TOL}")
+    med = statistics.median(step_s)
+    tokens = TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
+    return {"arch": TRAIN_ARCH, "seed": TRAIN_SEED, "params": n_params,
+            "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                       "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                       "vocab_size": cfg.vocab_size,
+                       "tie_embeddings": cfg.tie_embeddings},
+            "batch": TRAIN_FULL_BATCH, "seq": TRAIN_FULL_SEQ,
+            "remat": "block", "opt": {"lr": oc.lr,
+                                      "warmup_steps": oc.warmup_steps},
+            "reduced": ["train_4k's global batch 256 -> 1: one card holds "
+                        "the 53.4 GB of bf16 params, f32 moments and bf16 "
+                        "grads plus one sequence's activations and f32 "
+                        "logits", "no checkpoint (the state is 44.5 GB)"],
+            "state_bytes": state_bytes, "init_s": init_s, "cold_s": cold_s,
+            "step_s": step_s, "step_s_median": med,
+            "tokens_per_s": tokens / med,
+            "model_flops_per_s": 6 * n_params * tokens / med,
+            "model_flops_share_of_bf16_peak":
+                6 * n_params * tokens / med / BF16_OPS_PER_S,
+            "split_step_s": split_s, "fwd_bwd_ms": fwd_bwd_ms,
+            "optimizer_ms": opt_ms, "profiled_step_s": prof_s,
+            "kernel_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / prof_s,
+            "top_kernels_ms": top, "losses": losses, "lrs": lrs,
+            "f32_step0_loss": f32_loss,
+            "bf16_vs_f32_loss_err": abs(losses[0] - f32_loss),
+            "bf16_loss_tol": TRAIN_BF16_LOSS_TOL,
+            "max_memory_allocated": peak[0],
+            "max_memory_reserved": peak[1],
+            "f32_check_max_memory_reserved": check_peak[1],
+            "laps_s": lap.seconds}
+
+
+def phase_train():
+    """The LM scaffold's training path on the card (M12b, one device): the
+    100m preset against the CPU, the train launcher end to end with its
+    fault and resume paths, and Phi-4-mini training at full width.  No
+    kernel of the four is on it (K4 has no backward): every launch count
+    stays 0, which the phase checks."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.perf import executable_cache
+
+    _fresh_cache()
+    lap = _Laps()
+    ops.reset_launch_counts()
+    parity = _train_parity()
+    reserved = {"parity": _gb_cap("train/parity")[1]}
+    emit(dict({"phase": "train/parity"}, **parity,
+              max_memory_reserved=reserved["parity"]))
+    lap("parity")
+    torch.cuda.reset_peak_memory_stats()
+    launcher = _train_launcher(ROOT / "build" / "train_ckpt")
+    reserved["launcher"] = _gb_cap("train/launcher")[1]
+    emit(dict({"phase": "train/launcher"}, **launcher,
+              max_memory_reserved=reserved["launcher"]))
+    executable_cache().clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lap("launcher")
+    full = _train_full()
+    emit(dict({"phase": "train/full"}, **full))
+    lap("full")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"train: kernels launched {launches}")
+    rec = {"phase": "train", "launches": launches,
+           "step_s_median": full["step_s_median"],
+           "tokens_per_s": full["tokens_per_s"],
+           "max_memory_reserved_by_part": dict(
+               reserved, full=full["max_memory_reserved"],
+               full_f32_check=full["f32_check_max_memory_reserved"]),
+           "laps_s": lap.seconds}
+    emit(rec)
+    _fresh_cache()
+    return rec
+
+
 def main() -> int:
     # the flex_attention yardstick compiles; keep its caches in build/
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
+    # phase train runs cuBLAS under deterministic algorithms, which needs
+    # this set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2357,6 +2861,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    PACKED.install()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2384,6 +2889,7 @@ def main() -> int:
     served = timed("serve", phase_serve, main_rec)
     sharded = timed("shard_map", phase_shard_map)
     served_lm = timed("lm", phase_lm)
+    trained = timed("train", phase_train)
     emit({"phase_seconds": seconds})
     # launches on each kernel's path: K1 on the resolve paths (main,
     # planned, quality, stream and its checkpointed run, serve's delta
@@ -2399,6 +2905,8 @@ def main() -> int:
                 "jaccard_band": bands["launches"]["jaccard_band"],
                 "local_attn": attention["launches"]["local_attn"]
                 + served_lm["launches"]["local_attn"]}
+    # phase train launches none of them (checked there): its 0s counted
+    launches = {k: n + trained["launches"][k] for k, n in launches.items()}
     replaces = {"fused_band": "src/repro/kernels/fused_band.py:33",
                 "banded_sim": "src/repro/kernels/banded_sim.py:27",
                 "jaccard_band": "src/repro/kernels/jaccard_band.py:22",

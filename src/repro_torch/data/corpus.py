@@ -1,7 +1,6 @@
-"""Synthetic corpora and the corpus-dedup stage (port of
-``repro.data.corpus`` except ``TokenBatcher``, which belongs to the LM
-scaffold, ROADMAP M12).  The same numpy draws in the same order, so one
-seed gives the reference's arrays bit for bit.
+"""Synthetic corpora, the corpus-dedup stage and the LM's token batcher
+(port of ``repro.data.corpus``).  The same numpy draws in the same order,
+so one seed gives the reference's arrays bit for bit.
 
   * ``synth_corpus``         token documents with planted near-duplicates
   * ``zipf_entities``        the skewed hot-key entity corpus
@@ -11,11 +10,13 @@ seed gives the reference's arrays bit for bit.
   * ``doc_entities``, ``dedup_corpus``
                              documents -> entities, and the paper's
                              workflow as a dedup stage (``DedupResult``)
+  * ``TokenBatcher``         the LM train loop's batches, a pure function
+                             of (seed, step)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
@@ -195,3 +196,32 @@ def dedup_corpus(docs: np.ndarray, *, r: int = 4, window: int = 10,
     return DedupResult(keep=keep, n_pairs=len(res.matches),
                        n_dropped=int((~keep).sum()),
                        gini=P.gini(sizes), overflow=res.blocking.overflow)
+
+
+# -- deterministic token batcher ---------------------------------------------
+
+@dataclass
+class TokenBatcher:
+    """batch(step) is a pure function of (seed, step): crash recovery replays
+    the exact data order (fault tolerance requires deterministic data)."""
+    docs: np.ndarray                  # (n_docs, L) post-dedup
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+    def __post_init__(self):
+        flat = self.docs.reshape(-1)
+        n_tok = (flat.shape[0] // self.seq_len) * self.seq_len
+        self.stream = flat[:n_tok].reshape(-1, self.seq_len)
+
+    @property
+    def n_sequences(self) -> int:
+        return self.stream.shape[0]
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        idx = rng.integers(0, self.n_sequences, size=self.global_batch)
+        toks = self.stream[idx].astype(np.int32)
+        labels = np.concatenate(
+            [toks[:, 1:], np.full((toks.shape[0], 1), -1, np.int32)], axis=1)
+        return {"tokens": toks, "labels": labels}

@@ -314,7 +314,8 @@ def local_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``softcap * tanh(s / softcap)``.
 
     ``window >= 1`` (at 0 every key is masked and the reference's kernel
-    and plain version disagree).  ``block_q``/``block_k`` are for parity
+    and plain version disagree).  No operand may require grad: the kernel
+    has no backward.  ``block_q``/``block_k`` are for parity
     only and keep the reference's contract: S must be a multiple of
     ``min(block_q, block_k, S)``."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -327,6 +328,10 @@ def local_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if window < 1:
         raise ValueError(f"local_attn: window={window} < 1 masks every key")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise ValueError("local_attn has no backward (nor has the "
+                         "reference's kernel): it takes no operand that "
+                         "requires grad")
     s = q.shape[1]
     blk = min(block_q, block_k, s)
     if blk < 1 or s % blk:

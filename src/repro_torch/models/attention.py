@@ -10,20 +10,23 @@ that list with running-softmax accumulators in f32, as the reference's
 On the card, the sliding-window case goes through K4, the hand-written
 local-attention kernel (``repro_torch.kernels.ops.local_attn``, which
 replaces the reference's Pallas ``_local_attn_kernel``); see
-``flash_attention`` for exactly when.  Every other call, the CPU's
-included, runs the plain chunk-pair scan (``flash_attention_scan``).
+``flash_attention`` for exactly when.  Every other call, the CPU's and
+every call that carries a gradient included, runs the plain chunk-pair
+scan (``flash_attention_scan``), which PyTorch's autograd differentiates.
 
 Decode attends one query against the KV cache.  The cache buffers are
 written in place: a decode or prefill call returns the tensors it was
-given, updated.  The sharded forms (``rules``) come with M12b.
+given, updated.  The sharded forms (``rules``) come with M12b-2.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.modules import dense_apply, dense_init, no_rules
@@ -82,15 +85,17 @@ def chunk_pairs(s_q: int, s_kv: int, cq: int, ckv: int, *, causal: bool,
 # -- flash attention (train / prefill) -----------------------------------------
 
 def local_attn_route(q_shape, k_shape, *, causal: bool, window: int,
-                     q_offset: int = 0) -> bool:
+                     q_offset: int = 0, requires_grad: bool = False) -> bool:
     """Whether ``flash_attention`` on CUDA tensors of these shapes goes
     through K4: causal, a sliding window, no query offset, as many queries
-    as keys, S a multiple of K4's block and a head dim K4 is built for.
-    Shapes alone decide; the CPU never takes the route."""
+    as keys, S a multiple of K4's block and a head dim K4 is built for,
+    and no operand that requires grad (K4 has no backward, as the
+    reference's kernel has none: training takes the plain scan).  The CPU
+    never takes the route."""
     s, d = q_shape[1], q_shape[3]
     return (bool(causal) and window > 0 and q_offset == 0
             and s == k_shape[1] and s % LOCAL_ATTN_BLOCK == 0
-            and d in ops.ATTN_HEAD_DIMS)
+            and d in ops.ATTN_HEAD_DIMS and not requires_grad)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -102,17 +107,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Route: on CUDA tensors, when ``local_attn_route`` holds (causal,
     ``window > 0``, ``q_offset == 0``, ``S == T``, ``S % 256 == 0``,
-    ``D`` in (64, 128, 256)), the call is K4's: each KV head is repeated
-    for its ``H / KH`` query heads (query head h reads KV head h // G, as
-    in the scan) and the operands go to ``kernels.ops.local_attn`` as
-    contiguous (B*H, S, D).  K4 keeps the scan's mask, 1/sqrt(D) scale and
-    softcap, and the chunk sizes do not change the function.  The route is
-    never taken on an error: a failing build or launch raises.  Every
-    other call runs ``flash_attention_scan``."""
+    ``D`` in (64, 128, 256), no operand requiring grad), the call is
+    K4's: each KV head is repeated for its ``H / KH`` query heads (query
+    head h reads KV head h // G, as in the scan) and the operands go to
+    ``kernels.ops.local_attn`` as contiguous (B*H, S, D).  K4 keeps the
+    scan's mask, 1/sqrt(D) scale and softcap, and the chunk sizes do not
+    change the function.  The route is never taken on an error: a failing
+    build or launch raises.  Every other call runs
+    ``flash_attention_scan``."""
     no_rules(rules, "flash_attention")
     if q.device.type == "cuda" and local_attn_route(
             q.shape, k.shape, causal=causal, window=window,
-            q_offset=q_offset):
+            q_offset=q_offset, requires_grad=(
+                q.requires_grad or k.requires_grad or v.requires_grad)):
         return _local_attn_k4(q, k, v, window, logit_softcap)
     return flash_attention_scan(q, k, v, causal=causal, window=window,
                                 logit_softcap=logit_softcap, chunk_q=chunk_q,
@@ -132,6 +139,28 @@ def _local_attn_k4(q, k, v, window: int, logit_softcap: float):
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
+def _pair_step(oi, mi, li, qi, kj, vj, mask, scale: float,
+               logit_softcap: float):
+    """One (q-chunk, kv-chunk) pair of the scan: the running max ``mi``,
+    sum ``li`` and output ``oi`` of the q-chunk's (B, KH, G*cq) rows after
+    the kv-chunk's scores; ``mask`` is the pair's (cq, ckv) kept entries,
+    or None where every entry is kept.  Returns the new (o, m, l)."""
+    sc = torch.matmul(qi, kj.transpose(-1, -2)) * scale
+    if logit_softcap:
+        sc = torch.tanh(sc / logit_softcap) * logit_softcap
+    if mask is not None:
+        # (cq, ckv) -> the (G*cq, ckv) rows of every query head
+        b, kh, rows, ckv = sc.shape
+        sc = sc.view(b, kh, rows // mask.shape[0], mask.shape[0], ckv) \
+            .masked_fill(~mask, NEG_INF).view(b, kh, rows, ckv)
+    m_new = torch.maximum(mi, sc.amax(dim=-1))
+    alpha = torch.exp(mi - m_new)
+    p = torch.exp(sc - m_new[..., None])
+    l_new = li * alpha + p.sum(dim=-1)
+    o_new = oi * alpha[..., None] + torch.matmul(p, vj)
+    return o_new, m_new, l_new
+
+
 def flash_attention_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          logit_softcap: float = 0.0, chunk_q: int = 512,
@@ -140,7 +169,10 @@ def flash_attention_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain chunk-pair scan (the reference's ``flash_attention``): f32
     scores and accumulators, one step per pair of ``chunk_pairs``.  A pair
     whose every (query, key) is kept skips the mask; the result is the
-    same."""
+    same.  Where q, k or v carries a gradient, each pair step is
+    checkpointed (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of its scan body: the backward recomputes a pair's
+    f32 scores and probabilities instead of keeping them for every pair."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -167,20 +199,25 @@ def flash_attention_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         .contiguous()
     dev = q.device
     pos = torch.arange(max(s_pad, t_pad), dtype=torch.int32, device=dev)
+    step = _pair_step
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        step = functools.partial(checkpoint, _pair_step, use_reentrant=False,
+                                 preserve_rng_state=False)
 
-    o = torch.zeros((n_q, b, kh, g * cq, d), dtype=torch.float32, device=dev)
-    m = torch.full((n_q, b, kh, g * cq), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((n_q, b, kh, g * cq), dtype=torch.float32, device=dev)
+    # the running (o, m, l) of each q-chunk
+    o = [torch.zeros((b, kh, g * cq, d), dtype=torch.float32, device=dev)
+         for _ in range(n_q)]
+    m = [torch.full((b, kh, g * cq), NEG_INF, dtype=torch.float32,
+                    device=dev) for _ in range(n_q)]
+    l = [torch.zeros((b, kh, g * cq), dtype=torch.float32, device=dev)
+         for _ in range(n_q)]
     for i, j in zip(pi.tolist(), pj.tolist()):
-        sc = torch.matmul(qc[i], kc[j].transpose(-1, -2)).mul_(scale)
-        if logit_softcap:
-            sc.div_(logit_softcap).tanh_().mul_(logit_softcap)
         q_lo, q_hi = q_offset + i * cq, q_offset + (i + 1) * cq - 1
         k_lo, k_hi = j * ckv, (j + 1) * ckv - 1
-        full = ((not causal or k_hi <= q_lo)
-                and (not window or k_lo > q_hi - window) and k_hi < t)
-        if not full:
+        mask = None
+        if not ((not causal or k_hi <= q_lo)
+                and (not window or k_lo > q_hi - window) and k_hi < t):
             qp = q_offset + pos[i * cq:(i + 1) * cq]
             kp = pos[j * ckv:(j + 1) * ckv]
             mask = (kp < t)[None, :]
@@ -188,17 +225,11 @@ def flash_attention_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask = mask & (kp[None, :] <= qp[:, None])
             if window:
                 mask = mask & (kp[None, :] > qp[:, None] - window)
-            # (cq, ckv) -> the (G*cq, ckv) rows of every query head
-            sc = sc.view(b, kh, g, cq, ckv).masked_fill_(
-                ~mask, NEG_INF).view(b, kh, g * cq, ckv)
-        m_new = torch.maximum(m[i], sc.amax(dim=-1))
-        alpha = torch.exp(m[i] - m_new)
-        p = sc.sub_(m_new[..., None]).exp_()
-        l[i] = l[i] * alpha + p.sum(dim=-1)
-        o[i] = o[i] * alpha[..., None] + torch.matmul(p, vc[j])
-        m[i] = m_new
-    l = torch.where(l == 0.0, 1.0, l)
-    out = (o / l[..., None]).to(q.dtype)            # (n_q, B, KH, G*cq, D)
+        o[i], m[i], l[i] = step(o[i], m[i], l[i], qc[i], kc[j], vc[j], mask,
+                                scale, logit_softcap)
+    out = torch.stack([(oi / torch.where(li == 0.0, 1.0, li)[..., None])
+                       .to(q.dtype) for oi, li in zip(o, l)])
+    # (n_q, B, KH, G*cq, D) -> (B, S, H, D)
     out = out.reshape(n_q, b, kh, g, cq, d).permute(1, 0, 4, 2, 3, 5) \
         .reshape(b, s_pad, h, d)
     return out[:, :s]

@@ -1,11 +1,13 @@
-"""The reference's parameter and cache trees as the port's.
+"""The reference's parameter, cache and train-state trees as the port's.
 
 ``repro.models.lm.lm_init`` and ``cache_init`` build nested dicts with the
 same keys and shapes as the port's ``lm_init`` and ``cache_init`` (layer
-groups stacked on a leading axis).  These functions take such a tree with
-numpy arrays at its leaves (``np.asarray`` of each reference leaf;
-bfloat16 leaves included) and give the port's tensors, so that both
-packages compute with the same weights.
+groups stacked on a leading axis), and ``repro.train.steps.
+train_state_init`` the same ``{"params", "opt": {"m", "v", "step"}}`` as
+the port's.  These functions take such a tree with numpy arrays at its
+leaves (``np.asarray`` of each reference leaf; bfloat16 leaves included)
+and give the port's tensors, so that both packages compute (and train)
+from the same state.
 """
 from __future__ import annotations
 
@@ -31,6 +33,20 @@ def from_reference_params(tree, cfg, *, device=None):
     keys and the group axis are checked against ``cfg``."""
     dev = resolve_device(device)
     _check_groups(tree, cfg)
+    return tree_map(lambda x: _tensor(x, dev), tree)
+
+
+def train_state_from_reference(tree, cfg, *, device=None):
+    """The reference's ``train_state_init`` tree (numpy leaves: params in
+    their dtype, f32 moments shaped as the params, an int32 step) as the
+    port's train state, on ``device`` (default: the CUDA card)."""
+    dev = resolve_device(device)
+    if set(tree) != {"params", "opt"} or \
+            set(tree["opt"]) != {"m", "v", "step"}:
+        raise ValueError(f"train state keys {sorted(tree)}, opt "
+                         f"{sorted(tree.get('opt', {}))}")
+    for part in (tree["params"], tree["opt"]["m"], tree["opt"]["v"]):
+        _check_groups(part, cfg)
     return tree_map(lambda x: _tensor(x, dev), tree)
 
 

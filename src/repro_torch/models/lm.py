@@ -9,21 +9,26 @@ One ``forward`` serves three modes:
 The layer groups (one period of ``cfg.pattern``) are stacked on a leading
 group axis of every leaf of ``params["groups"]`` (and of the cache), as
 the reference's ``lax.scan`` consumes them; the port loops over that axis.
-The cache is written in place and returned.  Forward only: the training
-half (backward, remat, optimizer) comes with M12b.
+The cache is written in place and returned.  PyTorch's autograd
+differentiates ``forward`` and ``lm_loss``; ``remat`` checkpoints the
+layer groups (``torch.utils.checkpoint``) as the reference's
+``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.modules import (_normal, embed_apply, embed_init,
                                         no_rules, norm_apply, norm_init,
-                                        stack_init, tree_map)
+                                        softcap, stack_init, tree_leaves,
+                                        tree_map)
 
 
 def _generator(key, device) -> torch.Generator:
@@ -84,6 +89,13 @@ def _store(dst, src) -> None:
         dst.copy_(src)
 
 
+def _remat(fn):
+    """``fn`` checkpointed: its activations are recomputed in the backward
+    instead of kept (the forward draws nothing random)."""
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
 def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
             cache_pos=None, positions=None, rules=None,
             remat: str = "block", chunk_q: int = 512, chunk_kv: int = 1024,
@@ -91,10 +103,18 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
     """Returns (logits, new_cache, aux_loss).
 
     Runs on ``device`` (default: the CUDA card), where ``params`` (and the
-    cache) must already be; tokens or embeds are moved there.  ``remat``
-    is the reference's keyword and changes nothing in a forward pass."""
+    cache) must already be; tokens or embeds are moved there.
+
+    ``remat`` acts where autograd records (grad mode on, and the params
+    or the inputs requiring grad): with ``"block"`` or ``"full"``
+    each layer group is checkpointed, and with a pattern period above 1
+    each block inside it too (the reference's nested remat: the group's
+    backward would otherwise keep every block's intermediates).  The
+    reference's ``"block"`` saves the products of activations with
+    weights (``dots_with_no_batch_dims_saveable``) where ``"full"`` saves
+    nothing; the port recomputes them under both, which gives the same
+    numbers for less memory.  ``"none"`` keeps every activation."""
     no_rules(rules, "forward")
-    del remat
     dev = resolve_device(device)
     if params_device(params).type != dev.type:
         raise ValueError(f"params on {params_device(params)}, forward on "
@@ -117,21 +137,39 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=dev)[None].expand(bsz, s)
+    # checkpoint only where autograd records: a forward whose params and
+    # inputs need no gradient (serving) skips the wrappers' host work
+    remat_on = remat in ("block", "full") and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad
+                               for t in tree_leaves(params["groups"])))
 
+    def make_block_fn(kind):
+        def f(p, x, c):
+            return B.block_apply(
+                p, x, cfg, kind, cache=c, cache_pos=cache_pos,
+                positions=positions, chunk_q=chunk_q, chunk_kv=chunk_kv)
+        return _remat(f) if remat_on and len(cfg.pattern) > 1 else f
+
+    block_fns = [make_block_fn(kind) for kind in cfg.pattern]
+
+    def group(gparams, x, gcache):
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for i, fn in enumerate(block_fns):
+            c = gcache[f"b{i}"] if gcache is not None else None
+            x, nc, a = fn(gparams[f"b{i}"], x, c)
+            aux = aux + a
+            if c is not None:
+                _store(c, nc)
+        return x, aux
+
+    group_fn = _remat(group) if remat_on else group
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for g in range(cfg.n_groups):
         gparams = tree_map(lambda t: t[g], params["groups"])
         gcache = tree_map(lambda t: t[g], cache) if cache is not None \
             else None
-        for i, kind in enumerate(cfg.pattern):
-            c = gcache[f"b{i}"] if gcache is not None else None
-            x, nc, a = B.block_apply(
-                gparams[f"b{i}"], x, cfg, kind, cache=c,
-                cache_pos=cache_pos, positions=positions, chunk_q=chunk_q,
-                chunk_kv=chunk_kv)
-            aux = aux + a
-            if c is not None:
-                _store(c, nc)
+        x, a = group_fn(gparams, x, gcache)
+        aux = aux + a
 
     x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
     if logits_last_only and x.shape[1] > 1:
@@ -142,19 +180,29 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
         logits = x @ params["head"]["w"].to(x.dtype)
     logits = logits.float()
     if cfg.final_logit_softcap:
-        # cap * tanh(logits / cap), in place: (B, S, V) f32 logits are the
-        # largest tensor of a full-sequence forward
         cap = cfg.final_logit_softcap
-        logits.div_(cap).tanh_().mul_(cap)
+        if logits.requires_grad:
+            logits = softcap(logits, cap)
+        else:
+            # cap * tanh(logits / cap), in place: (B, S, V) f32 logits
+            # are the largest tensor of a full-sequence forward
+            logits.div_(cap).tanh_().mul_(cap)
     return logits, cache, aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """logits: (B,S,V) f32; labels: (B,S) int; mask: (B,S) or None."""
-    lse = torch.logsumexp(logits, dim=-1)
-    true_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - true_logit
+    """logits: (B,S,V) f32; labels: (B,S) int; mask: (B,S) or None.
+
+    Each token's ``logsumexp - true logit`` (the reference's) as
+    ``F.cross_entropy``'s log-softmax: its backward holds the saved
+    log-probabilities and two tensors of their size, where a logsumexp's
+    holds four (the f32 logits are 3.28 GB at a 4,096-token Phi-4-mini
+    sequence)."""
+    v = logits.shape[-1]
+    nll = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, v), labels.reshape(-1).long(),
+        reduction="none").reshape(labels.shape)
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.float()
@@ -164,7 +212,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(params, cfg, batch, *, rules=None, remat="block",
             chunk_q=512, chunk_kv=1024, device=None):
     """batch: dict with tokens (B,S) [or embeds] and labels (B,S); labels <0
-    are masked.  Returns (loss, metrics).  A forward pass only."""
+    are masked.  Returns (loss, metrics); autograd differentiates the
+    loss (``train.steps.make_train_step``)."""
     logits, _, aux = forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         rules=rules, remat=remat, chunk_q=chunk_q, chunk_kv=chunk_kv,

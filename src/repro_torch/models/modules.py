@@ -5,7 +5,7 @@ module is an ``*_init`` / ``*_apply`` function pair.  An init draws from
 an explicit ``torch.Generator`` (``key``) on the generator's device, so the
 port's weights are its own: a parity test carries the reference's weights
 across with ``models.convert.from_reference_params`` instead.  The logical
-sharding specs (``*_specs``) come with the sharding rules (M12b).
+sharding specs (``*_specs``) come with the sharding rules (M12b-2).
 """
 from __future__ import annotations
 
@@ -19,11 +19,12 @@ DEFAULT_INIT_SCALE = 0.02
 
 
 def no_rules(rules, where: str) -> None:
-    """The port runs the single-device path only: sharding rules are M12b's."""
+    """The port runs the single-device path only: sharding rules are
+    M12b-2's."""
     if rules is not None:
         raise NotImplementedError(
-            f"{where}: sharding rules are not ported yet (M12b); pass "
-            f"rules=None")
+            f"{where}: sharding rules are not ported yet (M12b-2, the "
+            f"sharding slice); pass rules=None")
 
 
 def _normal(key: torch.Generator, shape, dtype,
@@ -119,6 +120,17 @@ def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_items(tree, prefix: str = ""):
+    """(key, leaf) of every leaf in the reference's leaf order (dict keys
+    sorted, as ``jax.tree_util`` flattens a dict), each key the string
+    ``jax.tree_util.keystr`` gives its path, as in
+    ``['params']['embed']['table']``."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], f"{prefix}[{k!r}]")]
+    return [(prefix, tree)]
 
 
 def stack_init(init_fn, key, n: int):

@@ -6,7 +6,7 @@ path.
 the load-balancing aux loss, every expert applied to every token and
 weighted by its routing weight (no capacity, no drops), plus the shared
 experts.  The reference's shard_map dispatch (capacity buffers, expert or
-width partitions, one psum) comes with the sharding rules (M12b).
+width partitions, one psum) comes with the sharding rules (M12b-2).
 """
 from __future__ import annotations
 

@@ -275,13 +275,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t with h_{-1} = 0 along dim 1, as a log-depth
     inclusive scan of the pairs (a, b) under (a_l, b_l) . (a_r, b_r) =
     (a_l a_r, a_r b_l + b_r)."""
-    a, b = a.clone(), b.clone()
     s, step = a.shape[1], 1
     while step < s:
-        b_new = torch.addcmul(b[:, step:], a[:, step:], b[:, :-step])
-        a_new = a[:, step:] * a[:, :-step]
-        b[:, step:] = b_new
-        a[:, step:] = a_new
+        # out of place: autograd keeps each level's (a, b) for the backward
+        b = torch.cat([b[:, :step],
+                       torch.addcmul(b[:, step:], a[:, step:], b[:, :-step])],
+                      dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
         step *= 2
     return b
 

@@ -1,2 +1,4 @@
-"""The LM scaffold's step functions — port of ``repro.train``, serving
-half (``steps``: prefill and decode)."""
+"""The LM scaffold's training and serving — port of ``repro.train``:
+``optim`` (AdamW), ``steps`` (the train state, the train step and the
+serve steps), ``checkpoint`` (``Checkpointer``) and ``loop``
+(``train_loop``)."""

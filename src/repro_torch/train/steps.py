@@ -1,27 +1,126 @@
-"""Step functions of the LM scaffold — port of ``repro.train.steps``,
-serving half: ``make_prefill_step`` and ``make_decode_step`` with the
-shapes of their inputs and of the cache.
+"""Step functions of the LM scaffold — port of ``repro.train.steps``:
+the train state and ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step``, with the shapes of their inputs and of the cache.
 
 A step runs where its params are (``models.lm.lm_init`` puts them on the
-CUDA card unless told otherwise) and writes the cache in place.  Shapes
-are ``ShapeDtype(shape, dtype)`` records, the port's counterpart of
-``jax.ShapeDtypeStruct``.  The training half (``make_train_step`` and its
-state, specs and shardings) comes with M12b.
+CUDA card unless told otherwise).  The train step differentiates
+``models.lm.lm_loss`` with PyTorch's autograd and updates the state in
+place (``train.optim.adamw_update``); the serve steps write the cache in
+place.  Shapes are ``ShapeDtype(shape, dtype)`` records, the port's
+counterpart of ``jax.ShapeDtypeStruct``.  The state's sharding specs and
+``resolve_shardings`` come with the sharding rules (M12b-2).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm
-from repro_torch.models.modules import no_rules, tree_map
+from repro_torch.models.modules import no_rules, tree_leaves, tree_map
+from repro_torch.train import optim
 
 
 class ShapeDtype(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+# -- state -----------------------------------------------------------------------
+
+def train_state_init(key, cfg: ModelConfig, dtype=torch.bfloat16, *,
+                     device=None):
+    """``{"params", "opt": {"m", "v", "step"}}``: ``lm_init``'s params
+    drawn from ``key`` (a seed or a ``torch.Generator``) and zero AdamW
+    state, on ``device`` (default: the CUDA card)."""
+    params = lm.lm_init(key, cfg, dtype, device=device)
+    return {"params": params, "opt": optim.adamw_init(params)}
+
+
+# -- train -------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
+                    oc: Optional[optim.OptConfig] = None):
+    """``train_step(state, batch) -> (state, metrics)``, the reference's
+    step: the loss's gradient over every param leaf (autograd, with
+    ``run.remat`` and the attention chunks of ``run``), summed in f32 over
+    ``run.microbatch`` micro-batches and divided by their count where it
+    is above 1 (the metrics averaged), then ``adamw_update``.
+
+    The state is updated in place: the returned state holds the tensors
+    it was given.  A caller that needs the state from before a step
+    clones it first.  ``batch`` holds ``tokens`` (or ``embeds``) and
+    ``labels``, numpy arrays or tensors; they go to the params' device."""
+    no_rules(rules, "make_train_step")
+    oc = oc or optim.OptConfig()
+
+    def loss_and_grads(params, leaves, batch):
+        loss, metrics = lm.lm_loss(
+            params, cfg, batch, remat=run.remat, chunk_q=run.attn_chunk_q,
+            chunk_kv=run.attn_chunk_kv, device=lm.params_device(params))
+        # a leaf the loss does not read (a frontend arch's embedding
+        # table) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state, batch):
+        params = state["params"]
+        dev = lm.params_device(params)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            if run.microbatch and run.microbatch > 1:
+                nmb = run.microbatch
+                b = batch["tokens" if "tokens" in batch else "embeds"] \
+                    .shape[0]
+                if b % nmb:
+                    raise ValueError(f"batch {b} is not a multiple of "
+                                     f"microbatch {nmb}")
+                acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                       for p in leaves]
+                per_mb = []
+                for i in range(nmb):
+                    mbatch = {k: v[i * (b // nmb):(i + 1) * (b // nmb)]
+                              for k, v in batch.items()}
+                    grads, metrics = loss_and_grads(params, leaves, mbatch)
+                    for a, g in zip(acc, grads):
+                        a.add_(g)
+                    del grads
+                    per_mb.append(metrics)
+                grads = [a.div_(nmb) for a in acc]
+                metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+                           for k in per_mb[0]}
+            else:
+                grads, metrics = loss_and_grads(params, leaves, batch)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        it = iter(grads)
+        grad_tree = tree_map(lambda _: next(it), params)
+        del grads
+        _, _, om = optim.adamw_update(grad_tree, state["opt"], params, oc)
+        return state, dict(metrics, **om)
+
+    return train_step
+
+
+def train_batch_spec(cfg: ModelConfig, run: RunConfig):
+    """Logical sharding spec tree of a train batch (pure data)."""
+    if cfg.frontend:
+        return {"embeds": ("batch", None, None), "labels": ("batch", None)}
+    return {"tokens": ("batch", None), "labels": ("batch", None)}
+
+
+def train_batch_shapes(cfg: ModelConfig, run: RunConfig):
+    b, s = run.shape.global_batch, run.shape.seq_len
+    if cfg.frontend:
+        return {"embeds": ShapeDtype((b, s, cfg.d_model), torch.bfloat16),
+                "labels": ShapeDtype((b, s), torch.int32)}
+    return {"tokens": ShapeDtype((b, s), torch.int32),
+            "labels": ShapeDtype((b, s), torch.int32)}
 
 
 # -- serve: prefill ---------------------------------------------------------------

@@ -33,7 +33,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.configs, repro_torch.configs.gemma2_9b\n"
         "import repro_torch.models, repro_torch.models.lm\n"
         "import repro_torch.models.convert, repro_torch.train\n"
-        "import repro_torch.train.steps\n"
+        "import repro_torch.train.steps, repro_torch.train.optim\n"
+        "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -105,6 +107,29 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_card():
     # the explicit CPU request runs
     logits, _, _ = lm.forward(params, cfg, tokens=toks, device="cpu")
     assert logits.shape == (1, 8, cfg.vocab_size)
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_card(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import train as launch
+    from repro_torch.train import steps
+    from repro_torch.train.checkpoint import Checkpointer
+    cfg = smoke_variant(get_config("phi4-mini-3.8b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.train_state_init(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--ckpt-dir", str(tmp_path)])
+    state = steps.train_state_init(0, cfg, device="cpu")
+    ck = Checkpointer(tmp_path)
+    ck.save(1, state)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ck.restore(1, state)
+    # the explicit CPU request runs
+    assert ck.restore(1, state, device="cpu")["opt"]["step"].dtype == \
+        torch.int32
 
 
 def test_kernel_wrapper_raises_for_non_cpu_non_cuda_tensors():

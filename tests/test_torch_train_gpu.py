@@ -1,0 +1,78 @@
+"""The LM's training path on the card: a Gemma-2-shaped config (head dim
+256, local layers with a 128-token window, S = 256) trains through the
+plain chunk-pair scan, never K4 (which has no backward), with the CPU's
+gradients; K4 itself refuses an operand that requires grad.  Every test
+is marked ``gpu`` and skips where there is no CUDA card.  This file
+imports no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_train_gpu.py
+"""
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCHS, smoke_variant  # noqa: E402
+from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.modules import tree_map  # noqa: E402
+from repro_torch.train import optim, steps  # noqa: E402
+
+from _torch_parity import cuda  # noqa: E402,F401
+from _torch_train import port_grads  # noqa: E402
+
+B, S = 2, 256
+# f32 gradients (PyTorch keeps TF32 off for matmuls by default), card
+# against CPU: the same products summed in another order, relative to the
+# leaf's largest entry
+GRAD_RTOL = 1e-4
+
+
+def _gemma_shaped():
+    cfg = replace(smoke_variant(ARCHS["gemma2-9b"]), head_dim=256,
+                  window_size=128)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    return cfg, {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+
+@pytest.mark.gpu
+def test_gemma_shaped_config_trains_on_the_card_without_k4(cuda):
+    cfg, batch = _gemma_shaped()
+    cpu = lm.lm_init(0, cfg, torch.float32, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, B, "train"))
+    ops.reset_launch_counts()
+    got_m, grads = port_grads(cfg, run, card, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["local_attn"] == 0
+    want_m, want = port_grads(cfg, run, cpu, batch)
+    assert got_m["loss"] == pytest.approx(want_m["loss"], rel=1e-5)
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        np.testing.assert_allclose(grads[k], want[k], rtol=0,
+                                   atol=GRAD_RTOL * scale, err_msg=k)
+    # a train step on the card runs the same path and launches no K4
+    state = {"params": card, "opt": optim.adamw_init(card)}
+    _, metrics = steps.make_train_step(cfg, run)(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert ops.launch_counts()["local_attn"] == 0
+    # without a gradient the local layers' prefill takes K4's route
+    with torch.no_grad():
+        lm.forward(card, cfg, tokens=batch["tokens"], device=cuda)
+    torch.cuda.synchronize()
+    n_local = cfg.pattern.count("attn_local") * cfg.n_groups
+    assert ops.launch_counts()["local_attn"] == n_local
+
+
+@pytest.mark.gpu
+def test_local_attn_refuses_an_operand_that_requires_grad(cuda):
+    q = torch.randn((2, 256, 64), device=cuda)
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    before = ops.launch_counts()["local_attn"]
+    with pytest.raises(ValueError, match="no backward"):
+        ops.local_attn(q.requires_grad_(), k, v, window=64)
+    assert ops.launch_counts()["local_attn"] == before
