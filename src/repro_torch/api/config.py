@@ -4,12 +4,12 @@
 The port accepts every field and every config string of the reference and
 repeats its validation, so one kwargs dict builds both packages' configs
 (``matcher`` may be either package's cascade: it is converted to this
-package's ``CascadeMatcher``).  ``runner="shard_map"``, whose runner is
-not ported yet, is accepted here and refused by ``api.resolve`` with
-NotImplementedError naming the ROADMAP item.
-``band_interpret`` and ``jit_cache`` steer the reference's Pallas
-interpreter and executable cache, which the port does not have: they are
-accepted and have no effect.
+package's ``CascadeMatcher``).  ``runner="shard_map"`` runs one shard
+per rank of a ``torch.distributed`` process group (``api.ShardMapRunner``).
+``jit_cache`` routes the device runners' shard programs through the
+port's executable cache (``repro_torch.perf``: CUDA graphs on the card);
+``band_interpret`` steers the reference's Pallas interpreter, which the
+port does not have: it is accepted and has no effect.
 """
 from __future__ import annotations
 

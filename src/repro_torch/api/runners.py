@@ -292,6 +292,10 @@ class ShardMapRunner:
             n = dist.get_world_size() if dist.is_initialized() else 1
             object.__setattr__(self, "mesh", make_mesh_compat(
                 (n,), (self.axis,), device=resolve_device(self.device)))
+        if sum(s > 1 for s in self.mesh.sizes) > 1:
+            raise ValueError(f"mesh {self.mesh.shape}: the shard_map runner "
+                             f"takes one axis of shards (one shard per "
+                             f"rank)")
         # NCCL on the card, gloo on the CPU: a gloo group would carry the
         # card's collectives through host memory
         dev = torch.device(self.device or "cuda").type

@@ -102,6 +102,14 @@ def band_scores(ents: dict, w: int, matcher: CascadeMatcher, *,
     return torch.stack(scores, dim=-2), torch.stack(masks, dim=-2)
 
 
+def band_matches(ents: dict, w: int, matcher: CascadeMatcher, *,
+                 halo_len: int = 0, mode: str = "all") -> torch.Tensor:
+    """(..., w-1, M) bool: the band's pairs whose full cascade score
+    reaches the matcher's threshold."""
+    scores, mask = band_scores(ents, w, matcher, halo_len=halo_len, mode=mode)
+    return (scores >= matcher.threshold) & mask
+
+
 def compact_flat(band: torch.Tensor, cap: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pack the True positions of boolean bands (..., w-1, M) into

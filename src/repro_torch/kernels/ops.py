@@ -315,9 +315,13 @@ def local_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``window >= 1`` (at 0 every key is masked and the reference's kernel
     and plain version disagree).  No operand may require grad: the kernel
-    has no backward.  ``block_q``/``block_k`` are for parity
+    has no backward.  No operand may be a DTensor.  ``block_q``/``block_k`` are for parity
     only and keep the reference's contract: S must be a multiple of
     ``min(block_q, block_k, S)``."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("local_attn takes plain tensors: a DTensor's local "
+                        "heads reach it through models.attention")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"local_attn takes three (BH, S, D) of one shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

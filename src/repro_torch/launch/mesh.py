@@ -1,9 +1,16 @@
-"""Meshes for the shard_map runner (port of ``repro.launch.mesh``).
+"""Meshes (port of ``repro.launch.mesh``).
 
-The reference's mesh is a grid of JAX devices with named axes; its
-``ShardMapRunner`` puts one shard on each device of one axis.  Here a
-``Mesh`` is a ``torch.distributed`` process group with the name of its
-one axis: one shard per rank, and ``mesh.shape[axis]`` is the world size.
+The reference's mesh is a grid of JAX devices with named axes.  Here a
+``Mesh`` is a ``torch.distributed`` process group laid out as a grid of
+its ranks with named axes (``axis_names``, ``sizes``).  Two consumers read
+it:
+
+  * the SN ``ShardMapRunner`` puts one shard on each rank of one axis, so
+    it takes a mesh with at most one axis above 1;
+  * the LM scaffold's sharding rules (``repro_torch.sharding``) lay
+    tensors out on ``mesh.device_mesh``, a
+    ``torch.distributed.device_mesh.DeviceMesh`` over the same ranks with
+    the same axis names, ("data", "model") or ("pod", "data", "model").
 
 ``make_mesh_compat`` and ``make_host_mesh`` build it.  Where no default
 process group exists they start a world-size-1 group on an in-process
@@ -18,6 +25,7 @@ whose shard_map entries are keyed by the group.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from datetime import timedelta
@@ -31,7 +39,7 @@ GROUP_TIMEOUT = timedelta(seconds=60)
 @dataclass(frozen=True)
 class Mesh:
     """A process group as a mesh: ``axis_names`` with their sizes
-    (``sizes``), at most one of them above 1 — one shard per rank.  Two
+    (``sizes``), the group's ranks laid out row-major over them.  Two
     meshes of the same group and axes are equal (one cache entry)."""
     group: Any
     axis_names: Tuple[str, ...]
@@ -41,6 +49,21 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         """{axis name: size}, as the reference's ``Mesh.shape``."""
         return dict(zip(self.axis_names, self.sizes))
+
+    @functools.cached_property
+    def device_mesh(self):
+        """The ``DeviceMesh`` of this mesh's ranks and axis names, on the
+        device type the group's backend serves (NCCL: "cuda", gloo:
+        "cpu"); built on first use, which every rank of the group must
+        reach (it creates one process group per axis)."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        ranks = dist.get_process_group_ranks(self.group)
+        kind = "cuda" if "nccl" in str(dist.get_backend(self.group)) \
+            else "cpu"
+        return DeviceMesh(kind, torch.tensor(ranks).reshape(self.sizes),
+                          mesh_dim_names=self.axis_names)
 
 
 def _default_group(size: int, device):
@@ -67,16 +90,13 @@ def _default_group(size: int, device):
 def make_mesh_compat(shape, axes, *, group=None, device=None) -> Mesh:
     """A mesh of ``shape`` with axis names ``axes`` over ``group`` (None:
     the default group, started at world size 1 if there is none; its
-    backend follows ``device``, None meaning the card).  The shape's product must be the group's
-    world size, with at most one axis above 1."""
+    backend follows ``device``, None meaning the card).  The shape's
+    product must be the group's world size."""
     import torch.distributed as dist
     sizes = tuple(int(s) for s in shape)
     axes = tuple(axes)
     if len(sizes) != len(axes):
         raise ValueError(f"shape {sizes} and axes {axes} differ in length")
-    if sum(s > 1 for s in sizes) > 1:
-        raise ValueError(f"mesh {dict(zip(axes, sizes))}: the port's meshes "
-                         f"have one axis of shards (one shard per rank)")
     if group is None:
         group = _default_group(math.prod(sizes), device)
     world = dist.get_world_size(group)
@@ -87,12 +107,12 @@ def make_mesh_compat(shape, axes, *, group=None, device=None) -> Mesh:
 
 
 def make_host_mesh(model: int = 1, *, group=None, device=None) -> Mesh:
-    """A ("data", "model") mesh over every rank of ``group`` (None: the
-    default group, as ``make_mesh_compat``), ``model`` = 1."""
+    """A ("data", "model") mesh of (world / ``model``, ``model``) over every
+    rank of ``group`` (None: the default group, as ``make_mesh_compat``)."""
     import torch.distributed as dist
-    if model != 1:
-        raise ValueError(f"model={model}: the port's meshes shard only "
-                         f"the data axis")
     n = dist.get_world_size(group) if dist.is_initialized() else 1
-    return make_mesh_compat((n, model), ("data", "model"), group=group,
-                            device=device)
+    if model < 1 or n % model:
+        raise ValueError(f"model={model} does not divide the world size "
+                         f"{n}")
+    return make_mesh_compat((n // model, model), ("data", "model"),
+                            group=group, device=device)

@@ -13,6 +13,14 @@ The cache is written in place and returned.  PyTorch's autograd
 differentiates ``forward`` and ``lm_loss``; ``remat`` checkpoints the
 layer groups (``torch.utils.checkpoint``) as the reference's
 ``jax.checkpoint`` does.
+
+With ``rules`` the params (and the cache) are DTensors laid out by
+``lm_specs`` (``cache_specs``) on the rules' mesh
+(``train.steps.place_tree``); the tokens, embeds and labels are given
+whole on every rank and each rank keeps its rows.  The logits come back
+as a DTensor.  On a mesh of size-1 axes the tensors stay plain, and the
+rules change only what the reference's do there: the one-hot embedding
+and the MoE's capacity dispatch.
 """
 from __future__ import annotations
 
@@ -26,9 +34,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.modules import (_normal, embed_apply, embed_init,
-                                        no_rules, norm_apply, norm_init,
-                                        softcap, stack_init, tree_leaves,
-                                        tree_map)
+                                        embed_onehot_apply, embed_specs,
+                                        norm_apply, norm_init, norm_specs,
+                                        prepend_layer_axis, softcap,
+                                        stack_init, tree_leaves, tree_map)
+from repro_torch.sharding import local as SL
 
 
 def _generator(key, device) -> torch.Generator:
@@ -44,6 +54,11 @@ def _generator(key, device) -> torch.Generator:
 
 def group_init(key, cfg, dtype):
     return {f"b{i}": B.block_init(key, cfg, kind, dtype)
+            for i, kind in enumerate(cfg.pattern)}
+
+
+def group_specs(cfg):
+    return {f"b{i}": B.block_specs(cfg, kind)
             for i, kind in enumerate(cfg.pattern)}
 
 
@@ -63,6 +78,17 @@ def lm_init(key, cfg, dtype=torch.bfloat16, *, device=None):
     return params
 
 
+def lm_specs(cfg):
+    s: dict[str, Any] = {
+        "embed": embed_specs(),
+        "groups": prepend_layer_axis(group_specs(cfg)),
+        "final_norm": norm_specs(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        s["head"] = {"w": (None, "vocab")}
+    return s
+
+
 def params_device(params) -> torch.device:
     return params["final_norm"]["scale"].device
 
@@ -79,12 +105,22 @@ def cache_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
         (cfg.n_groups,) + (1,) * x.dim()), one)
 
 
+def cache_specs(cfg):
+    s = {f"b{i}": B.block_cache_specs(kind)
+         for i, kind in enumerate(cfg.pattern)}
+    return prepend_layer_axis(s)
+
+
 def _store(dst, src) -> None:
     """Write a block's new cache into its group's slice of the stacked
     cache (attention caches were written in place already)."""
     if isinstance(dst, dict):
         for k in dst:
             _store(dst[k], src[k])
+    elif dst is src:
+        return
+    elif SL.is_dtensor(dst):
+        dst.to_local().copy_(SL.to_local(src, dst.placements))
     elif dst.data_ptr() != src.data_ptr():
         dst.copy_(src)
 
@@ -113,23 +149,35 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
     reference's ``"block"`` saves the products of activations with
     weights (``dots_with_no_batch_dims_saveable``) where ``"full"`` saves
     nothing; the port recomputes them under both, which gives the same
-    numbers for less memory.  ``"none"`` keeps every activation."""
-    no_rules(rules, "forward")
+    numbers for less memory.  ``"none"`` keeps every activation.
+
+    ``rules``: the sharded forward (module docstring); a multi-token
+    input is embedded as one-hot @ table (``embed_onehot_apply``), as the
+    reference's is."""
     dev = resolve_device(device)
     if params_device(params).type != dev.type:
         raise ValueError(f"params on {params_device(params)}, forward on "
                          f"{dev}")
     if embeds is not None:
         x = torch.as_tensor(embeds, device=dev)
+        if rules is not None:
+            x = rules.shard_input(x, ("batch", None, None))
         bsz, s = x.shape[:2]
     else:
         tokens = torch.as_tensor(tokens, device=dev)
-        x = embed_apply(params["embed"], tokens)
         bsz, s = tokens.shape
+        if rules is not None:
+            tokens = rules.shard_input(tokens, ("batch", None))
+        if rules is not None and s > 1:
+            x = embed_onehot_apply(params["embed"], tokens, rules)
+        else:
+            x = embed_apply(params["embed"], tokens)
     x = x.to(params["final_norm"]["scale"].dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=dev)
+    if rules is not None:
+        x = rules.constrain(x, ("batch", "residual_seq", None))
     if positions is None:
         if cache_pos is not None and s == 1:
             positions = (cache_pos - 1) * torch.ones(
@@ -146,14 +194,15 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
     def make_block_fn(kind):
         def f(p, x, c):
             return B.block_apply(
-                p, x, cfg, kind, cache=c, cache_pos=cache_pos,
+                p, x, cfg, kind, rules=rules, cache=c, cache_pos=cache_pos,
                 positions=positions, chunk_q=chunk_q, chunk_kv=chunk_kv)
         return _remat(f) if remat_on and len(cfg.pattern) > 1 else f
 
     block_fns = [make_block_fn(kind) for kind in cfg.pattern]
 
     def group(gparams, x, gcache):
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        aux = SL.replicated(torch.zeros((), dtype=torch.float32, device=dev),
+                            x)
         for i, fn in enumerate(block_fns):
             c = gcache[f"b{i}"] if gcache is not None else None
             x, nc, a = fn(gparams[f"b{i}"], x, c)
@@ -163,7 +212,7 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
         return x, aux
 
     group_fn = _remat(group) if remat_on else group
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    aux = SL.replicated(torch.zeros((), dtype=torch.float32, device=dev), x)
     for g in range(cfg.n_groups):
         gparams = tree_map(lambda t: t[g], params["groups"])
         gcache = tree_map(lambda t: t[g], cache) if cache is not None \
@@ -178,6 +227,8 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
         logits = x @ params["embed"]["table"].to(x.dtype).T
     else:
         logits = x @ params["head"]["w"].to(x.dtype)
+    if rules is not None:
+        logits = rules.constrain(logits, ("batch", None, "vocab"))
     logits = logits.float()
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
@@ -219,7 +270,12 @@ def lm_loss(params, cfg, batch, *, rules=None, remat="block",
         rules=rules, remat=remat, chunk_q=chunk_q, chunk_kv=chunk_kv,
         device=device)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if rules is not None:
+        labels = rules.shard_input(labels, ("batch", None))
     mask = labels >= 0
     ce = cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    if SL.is_dtensor(ce):
+        # whole scalars on every rank (differentiable gathers)
+        ce, aux = ce.full_tensor(), aux.full_tensor()
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}

@@ -1,11 +1,18 @@
 """Minimal functional module system — port of ``repro.models.modules``.
 
 Params are nested dicts of tensors with the reference's tree layout; every
-module is an ``*_init`` / ``*_apply`` function pair.  An init draws from
+module is an ``*_init`` / ``*_apply`` function pair plus a ``*_specs``
+function returning the same-structure tree of *logical* sharding axis
+tuples (resolved by ``repro_torch.sharding.Rules``).  An init draws from
 an explicit ``torch.Generator`` (``key``) on the generator's device, so the
 port's weights are its own: a parity test carries the reference's weights
-across with ``models.convert.from_reference_params`` instead.  The logical
-sharding specs (``*_specs``) come with the sharding rules (M12b-2).
+across with ``models.convert.from_reference_params`` instead.
+
+With ``rules`` the applies take DTensors laid out on the rules' mesh
+(``train.steps.place_tree``) and PyTorch's DTensor dispatch runs the
+dense maths; the bodies that the reference runs per shard go through
+``repro_torch.sharding.local``.  On a mesh of size-1 axes they take the
+plain tensors (``sharding.Rules.dtensors``).
 """
 from __future__ import annotations
 
@@ -15,16 +22,9 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import is_logical_leaf
+
 DEFAULT_INIT_SCALE = 0.02
-
-
-def no_rules(rules, where: str) -> None:
-    """The port runs the single-device path only: sharding rules are
-    M12b-2's."""
-    if rules is not None:
-        raise NotImplementedError(
-            f"{where}: sharding rules are not ported yet (M12b-2, the "
-            f"sharding slice); pass rules=None")
 
 
 def _normal(key: torch.Generator, shape, dtype,
@@ -47,6 +47,14 @@ def dense_init(key, in_dim: int, out_dim: int, dtype, *, bias: bool = False,
     return p
 
 
+def dense_specs(in_axis: Optional[str], out_axis: Optional[str],
+                *, bias: bool = False):
+    s = {"w": (in_axis, out_axis)}
+    if bias:
+        s["b"] = (out_axis,)
+    return s
+
+
 def dense_apply(p, x):
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
@@ -62,6 +70,12 @@ def norm_init(key, dim: int, dtype, *, kind: str = "rmsnorm"):
         return {"scale": torch.zeros((dim,), dtype=dtype, device=dev)}
     return {"scale": torch.ones((dim,), dtype=dtype, device=dev),
             "bias": torch.zeros((dim,), dtype=dtype, device=dev)}
+
+
+def norm_specs(kind: str = "rmsnorm"):
+    if kind == "rmsnorm":
+        return {"scale": ("none",)}
+    return {"scale": ("none",), "bias": ("none",)}
 
 
 def norm_apply(p, x, *, kind: str = "rmsnorm", eps: float = 1e-6):
@@ -82,8 +96,34 @@ def embed_init(key, vocab: int, dim: int, dtype):
     return {"table": _normal(key, (vocab, dim), dtype, 1.0 / math.sqrt(dim))}
 
 
+def embed_specs():
+    # vocab-sharded only: the d_model dim stays whole (the reference's
+    # choice: sharding it too makes the token lookup repartition badly)
+    return {"table": ("vocab", None)}
+
+
 def embed_apply(p, tokens):
     return p["table"][tokens]
+
+
+def embed_onehot_apply(p, tokens, rules):
+    """Distributed embedding as one_hot @ table (the reference's): with a
+    vocab-sharded table the lookup is a shard-local contraction plus a
+    sum over the vocab shards, and its table gradient one more.  ``tokens``
+    is a DTensor on the rules' mesh (a plain tensor on a mesh of size-1
+    axes); the one-hot rows are built on each rank's own tokens, in the
+    table's dtype (exact: one 1 per row)."""
+    from repro_torch.sharding.local import from_local, is_dtensor
+    v = p["table"].shape[0]
+    tl = tokens.to_local() if is_dtensor(tokens) else tokens
+    oh = torch.zeros(tuple(tl.shape) + (v,), dtype=p["table"].dtype,
+                     device=tl.device)
+    oh.scatter_(-1, tl.long()[..., None], 1)
+    if is_dtensor(tokens):
+        oh = from_local(oh, tokens.device_mesh, tokens.placements,
+                        tuple(tokens.shape) + (v,))
+    oh = rules.constrain(oh, ("batch", None, "vocab"))
+    return oh @ p["table"]
 
 
 def unembed_apply(p, x):
@@ -131,6 +171,19 @@ def tree_items(tree, prefix: str = ""):
         return [item for k in sorted(tree)
                 for item in tree_items(tree[k], f"{prefix}[{k!r}]")]
     return [(prefix, tree)]
+
+
+def spec_map(fn, spec_tree):
+    """``fn`` over every logical spec of a nested dict of specs."""
+    if is_logical_leaf(spec_tree):
+        return fn(spec_tree)
+    return {k: spec_map(fn, v) for k, v in spec_tree.items()}
+
+
+def prepend_layer_axis(spec_tree):
+    """Add the stacked ('layers') axis in front of every leaf's logical
+    spec."""
+    return spec_map(lambda t: ("layers",) + t, spec_tree)
 
 
 def stack_init(init_fn, key, n: int):

@@ -9,6 +9,10 @@ sequence (the reference's ``associative_scan``).
 
 Every decode path carries an explicit state dict, so a decode step is
 O(1) in the context length.
+
+With ``rules`` each mixer's recurrence runs on each rank's own rows with
+whole weights (``sharding.local.batch_local_call``), and its output
+projection under DTensor dispatch after the reference's constraint.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import (_normal, dense_apply, dense_init,
-                                        no_rules)
+                                        dense_specs)
+from repro_torch.sharding import local as SL
 
 F32 = torch.float32
 
@@ -46,6 +51,17 @@ def mlstm_init(key, cfg, dtype):
     }
 
 
+def mlstm_specs(cfg):
+    return {
+        "wq": dense_specs("embed", "qkv"),
+        "wk": dense_specs("embed", "qkv"),
+        "wv": dense_specs("embed", "qkv"),
+        "wif": dense_specs("embed", None, bias=True),
+        "wo_gate": dense_specs("embed", "qkv"),
+        "wo": dense_specs("qkv", "embed"),
+    }
+
+
 def mlstm_state_init(cfg, batch: int, dtype=F32, *, device=None):
     h, hd = cfg.n_heads, cfg.head_dim
     return {
@@ -53,6 +69,27 @@ def mlstm_state_init(cfg, batch: int, dtype=F32, *, device=None):
         "n": torch.zeros((batch, h, hd), dtype=dtype, device=device),
         "m": torch.full((batch, h), -1e30, dtype=dtype, device=device),
     }
+
+
+def mlstm_state_specs():
+    return {"C": ("batch", "heads", None, None),
+            "n": ("batch", "heads", None),
+            "m": ("batch", "heads")}
+
+
+def _mixer(core, p, x, state, rules, out: str, constrain=None):
+    """``core(p, x, state) -> (y, new_state)`` then the output projection
+    ``p[out]``; with ``rules`` the core runs on each rank's rows and ``y``
+    is constrained to ``constrain`` first."""
+    if not SL.on_mesh(x, rules, "a recurrent mixer"):
+        y, new_state = core(p, x, state)
+    else:
+        y, new_state = SL.batch_local_call(
+            core, rules, x, {k: v for k, v in p.items() if k != out},
+            state)
+        if constrain is not None:
+            y = rules.constrain(y, constrain)
+    return dense_apply(p[out], y), new_state
 
 
 def _mlstm_gates(p, x, h):
@@ -68,7 +105,11 @@ def mlstm_apply(p, x, cfg, *, state=None, chunk: int = 256, rules=None):
     S == 1 with state  -> decode step.
     S > 1              -> chunkwise-parallel scan (state optional, default 0).
     """
-    no_rules(rules, "mlstm_apply")
+    return _mixer(lambda p_, x_, st: _mlstm_core(p_, x_, cfg, st, chunk),
+                  p, x, state, rules, "wo", ("batch", None, "qkv"))
+
+
+def _mlstm_core(p, x, cfg, state, chunk: int):
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -91,7 +132,7 @@ def mlstm_apply(p, x, cfg, *, state=None, chunk: int = 256, rules=None):
 
     o_gate = torch.sigmoid(dense_apply(p["wo_gate"], x).float())
     y = (y.reshape(b, s, h * hd).float() * o_gate).to(x.dtype)
-    return dense_apply(p["wo"], y), new_state
+    return y, new_state
 
 
 def _mlstm_step(q, k, v, logi, logf, state):
@@ -194,6 +235,12 @@ def slstm_init(key, cfg, dtype):
     }
 
 
+def slstm_specs(cfg):
+    return {"wx": dense_specs("embed", None, bias=True),
+            "r": ("heads", None, None),
+            "wo": dense_specs(None, "embed")}
+
+
 def slstm_state_init(cfg, batch: int, dtype=F32, *, device=None):
     h, hd = cfg.n_heads, cfg.head_dim
     z = lambda: torch.zeros((batch, h, hd), dtype=dtype, device=device)
@@ -202,9 +249,18 @@ def slstm_state_init(cfg, batch: int, dtype=F32, *, device=None):
                             device=device)}
 
 
+def slstm_state_specs():
+    t = ("batch", "heads", None)
+    return {"c": t, "n": t, "h": t, "m": t}
+
+
 def slstm_apply(p, x, cfg, *, state=None, rules=None):
     """x: (B,S,D) -> (y, new_state).  Sequential loop over time."""
-    no_rules(rules, "slstm_apply")
+    return _mixer(lambda p_, x_, st: _slstm_core(p_, x_, cfg, st),
+                  p, x, state, rules, "wo")
+
+
+def _slstm_core(p, x, cfg, state):
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     if state is None:
@@ -233,7 +289,6 @@ def slstm_apply(p, x, cfg, *, state=None, rules=None):
         m = m_new
         ys.append(hprev)
     y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
-    y = dense_apply(p["wo"], y)
     return y, {"c": c, "n": n, "h": hprev, "m": m}
 
 
@@ -261,11 +316,29 @@ def rglru_init(key, cfg, dtype):
     return p
 
 
+def rglru_specs(cfg):
+    return {
+        "w_in": dense_specs("embed", "d_ff"),
+        "w_gate_in": dense_specs("embed", "d_ff"),
+        "conv_w": (None, "d_ff"),
+        "conv_b": ("d_ff",),
+        # (R, R) gate maps: row-parallel (one dim on 'model')
+        "w_rg": dense_specs("d_ff", None),
+        "w_ig": dense_specs("d_ff", None),
+        "lam": ("d_ff",),
+        "w_out": dense_specs("d_ff", "embed"),
+    }
+
+
 def rglru_state_init(cfg, batch: int, dtype=F32, *, device=None):
     rdim = cfg.rglru_dim or cfg.d_model
     return {"h": torch.zeros((batch, rdim), dtype=dtype, device=device),
             "conv": torch.zeros((batch, 3, rdim), dtype=dtype,
                                 device=device)}
+
+
+def rglru_state_specs():
+    return {"h": ("batch", "d_ff"), "conv": ("batch", None, "d_ff")}
 
 
 _RG_C = 8.0
@@ -288,7 +361,11 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_apply(p, x, cfg, *, state=None, rules=None):
     """Griffin recurrent block. x: (B,S,D) -> (y, new_state)."""
-    no_rules(rules, "rglru_apply")
+    return _mixer(lambda p_, x_, st: _rglru_core(p_, x_, cfg, st),
+                  p, x, state, rules, "w_out", ("batch", None, "d_ff"))
+
+
+def _rglru_core(p, x, cfg, state):
     b, s, d = x.shape
     if state is None:
         state = rglru_state_init(cfg, b, device=x.device)
@@ -321,5 +398,4 @@ def rglru_apply(p, x, cfg, *, state=None, rules=None):
         new_h = hs[:, -1]
 
     y = (hs * gate).to(x.dtype)                          # (B,S,R)
-    y = dense_apply(p["w_out"], y)
     return y, {"h": new_h, "conv": new_conv}

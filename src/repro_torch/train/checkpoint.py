@@ -13,12 +13,20 @@ package restores in the other.
   * restore: the newest complete step, into the structure, shapes and
     dtypes of a tree of tensors or ``ShapeDtype`` records, on ``device``
     (default: the CUDA card).  A ``|V2`` array is read back as bf16 by a
-    bit view; the reference's own restore cannot cast it.  Restoring onto
-    a sharded layout (``shardings``) comes with the sharding rules
-    (M12b-2).
+    bit view; the reference's own restore cannot cast it.  With
+    ``shardings`` (``train.steps.resolve_shardings``) each leaf is laid
+    out on the mesh as a DTensor (``train.steps.place_tree``; a plain
+    tensor on a mesh of size-1 axes): a checkpoint restores onto any
+    mesh.
+  * a state of DTensors is saved whole, in the same format: every rank
+    gathers each leaf (``full_tensor``, a collective) before ``save``
+    returns, and rank 0 writes.  The ranks meet on a barrier in ``wait``
+    (which ``restore`` and ``latest_step`` call first), after rank 0's
+    write: a checkpoint one rank sees is there for all.
   * async: optional background thread, so the train loop overlaps the
     write with the next step (the host copies are taken before ``save``
-    returns).
+    returns), a sharded state's too; without it ``save`` returns once
+    the checkpoint is written (and, sharded, every rank has waited).
 """
 from __future__ import annotations
 
@@ -34,11 +42,14 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.modules import tree_items
+from repro_torch.sharding import local as SL
 
 _BF16_WORDS = np.dtype("V2")
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    if SL.is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().cpu()
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(_BF16_WORDS)
@@ -81,24 +92,38 @@ class Checkpointer:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False    # a sharded save whose barrier is to come
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, state, *, extra: Optional[dict] = None):
         flat = _flatten(state)            # host copies (synchronous)
-        if self.async_save:
+        writes = True
+        if any(SL.is_dtensor(x) for _, x in tree_items(state)):
+            import torch.distributed as dist
+            self._barrier = True
+            writes = dist.get_rank() == 0
+        if writes and self.async_save:
             if self._thread is not None:
                 self._thread.join()
             self._thread = threading.Thread(
                 target=self._write, args=(step, flat, extra or {}))
             self._thread.start()
-        else:
+        elif writes:
             self._write(step, flat, extra or {})
+        if not self.async_save:
+            self.wait()
 
     def wait(self):
+        """The pending write finished; after a sharded save, on every
+        rank (a collective then)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, flat: dict, extra: dict):
         tmp = self.dir / f"step_{step}.npz.tmp"
@@ -121,6 +146,7 @@ class Checkpointer:
     # -- restore -------------------------------------------------------------
 
     def latest_step(self) -> Optional[int]:
+        self.wait()
         m = self.dir / "manifest.json"
         if not m.exists():
             ckpts = _steps(self.dir)
@@ -131,15 +157,18 @@ class Checkpointer:
                 shardings=None):
         """``state_like``: a tree of tensors or ``ShapeDtype`` records
         giving structure, shapes and dtypes.  Returns new tensors on
-        ``device`` (default: the CUDA card)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "Checkpointer.restore: shardings come with the sharding "
-                "rules (M12b-2)")
+        ``device`` (default: the CUDA card); with ``shardings`` (a
+        matching tree of ``NamedSharding``s) DTensors laid out by them,
+        read on every rank."""
         dev = resolve_device(device)
+        self.wait()
         with np.load(self.dir / f"step_{step}.npz") as z:
             flat = {k: z[k] for k in z.files}
-        return _unflatten_into(state_like, flat, dev)
+        state = _unflatten_into(state_like, flat, dev)
+        if shardings is not None:
+            from repro_torch.train.steps import place_tree
+            state = place_tree(state, shardings)
+        return state
 
     def restore_latest(self, state_like, *, device=None, shardings=None):
         step = self.latest_step()

@@ -57,16 +57,15 @@ def train_loop(train_step: Callable, state, batcher, ckpt: Checkpointer,
     """Runs to ``cfg.total_steps`` with checkpoint/restart fault tolerance.
 
     ``inject_fault_at``: test hook — raises a simulated device failure once
-    at that step to exercise the restore path.  ``shardings`` comes with
-    the sharding rules (M12b-2)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "train_loop: shardings come with the sharding rules (M12b-2)")
+    at that step to exercise the restore path.  ``shardings``: the state's
+    layout (``train.steps.resolve_shardings``), which every restore puts
+    it back into."""
     device = tree_items(state)[0][1].device
     stats = LoopStats()
     step = 0
     if ckpt.latest_step() is not None:
-        step, state = ckpt.restore_latest(state, device=device)
+        step, state = ckpt.restore_latest(state, device=device,
+                                          shardings=shardings)
     injected = False
     ewma = None
     retries = 0
@@ -91,7 +90,8 @@ def train_loop(train_step: Callable, state, batcher, ckpt: Checkpointer,
                     f"step {step} failed {retries}x; aborting") from e
             last = ckpt.latest_step()
             if last is not None:
-                step, state = last, ckpt.restore(last, state, device=device)
+                step, state = last, ckpt.restore(last, state, device=device,
+                                                 shardings=shardings)
             continue
         retries = 0
         dt = time.time() - t0

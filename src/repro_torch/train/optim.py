@@ -13,8 +13,13 @@ stay small: a second tree of moments does not fit beside the first at
 the largest configuration one card trains.  Each slice goes through the
 reference's expression op by op, so the numbers are those of a whole-leaf
 update.  ``torch.optim.AdamW`` has another schedule, clipping and decay
-rule, and is not used.  The sharded specs (``adamw_specs``) come with the
-sharding rules (M12b-2).
+rule, and is not used.
+
+On DTensor leaves (a state laid out by ``train.steps.train_state_specs``)
+the moments share the params' placements (ZeRO comes with FSDP), and a
+leaf's gradient is brought to them first.  The update is elementwise, so
+each rank updates its own shards; the global norm sums every leaf's
+squares over its shards before the square root.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.modules import tree_items, tree_map
+from repro_torch.sharding import local as SL
 
 # elements of one leaf updated at a time (64 MB of f32 temporaries each)
 UPDATE_SLICE = 1 << 24
@@ -66,16 +72,32 @@ def adamw_init(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def adamw_specs(param_specs):
+    """Moments share the params' logical sharding; step replicated."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def _slices(x: torch.Tensor):
     return x.view(-1).split(UPDATE_SLICE)
+
+
+def _sum_squares(x) -> torch.Tensor:
+    """The sum of a leaf's squares in f32, a slice at a time; a DTensor's
+    over all its shards (each replica counted once)."""
+    if SL.is_dtensor(x):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        part = _sum_squares(x.to_local())
+        pl = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in x.placements]
+        return SL.from_local(part, x.device_mesh, pl, ()).full_tensor()
+    return sum(torch.sum(torch.square(s.float()))
+               for s in _slices(x.contiguous()))
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (leaves in the
     reference's order; each summed a slice at a time)."""
-    return torch.sqrt(sum(
-        sum(torch.sum(torch.square(s.float())) for s in _slices(
-            x.contiguous())) for _, x in tree_items(tree)))
+    return torch.sqrt(sum(_sum_squares(x) for _, x in tree_items(tree)))
 
 
 @torch.no_grad()
@@ -84,7 +106,16 @@ def adamw_update(grads, opt_state, params, oc: OptConfig):
     are the trees given, updated in place (the step count too)."""
     step = opt_state["step"]
     step.add_(1)
-    gnorm = global_norm(grads)
+    if SL.is_dtensor(step):
+        step = step.to_local()
+    p_items = tree_items(params)
+    g_items = dict(tree_items(grads))
+    for key, p in p_items:
+        g = g_items[key]
+        if SL.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            # a partial sum over data shards becomes the params' layout
+            g_items[key] = g.redistribute(p.device_mesh, p.placements)
+    gnorm = torch.sqrt(sum(_sum_squares(g_items[k]) for k, _ in p_items))
     if oc.clip_norm > 0:
         scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -95,16 +126,17 @@ def adamw_update(grads, opt_state, params, oc: OptConfig):
     b1c = 1 - torch.pow(oc.b1, stepf)
     b2c = 1 - torch.pow(oc.b2, stepf)
 
-    p_items = tree_items(params)
-    g_items = dict(tree_items(grads))
     m_items = dict(tree_items(opt_state["m"]))
     v_items = dict(tree_items(opt_state["v"]))
     for key, p in p_items:
-        decay = p.dim() >= 2
-        g = g_items[key].contiguous()
-        for ps, gs, ms, vs in zip(_slices(p), _slices(g),
-                                  _slices(m_items[key]),
-                                  _slices(v_items[key])):
+        decay = p.dim() >= 2               # the global shape's
+        g, m, v = g_items[key], m_items[key], v_items[key]
+        if SL.is_dtensor(p):
+            g = SL.to_local(g, p.placements)
+            p, m, v = p.to_local(), m.to_local(), v.to_local()
+        g = g.contiguous()
+        for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
+                                  _slices(v)):
             g32 = gs.float() * scale
             ms.mul_(oc.b1).add_((1 - oc.b1) * g32)
             vs.mul_(oc.b2).add_(((1 - oc.b2) * g32).mul_(g32))

@@ -7,8 +7,13 @@ CUDA card unless told otherwise).  The train step differentiates
 ``models.lm.lm_loss`` with PyTorch's autograd and updates the state in
 place (``train.optim.adamw_update``); the serve steps write the cache in
 place.  Shapes are ``ShapeDtype(shape, dtype)`` records, the port's
-counterpart of ``jax.ShapeDtypeStruct``.  The state's sharding specs and
-``resolve_shardings`` come with the sharding rules (M12b-2).
+counterpart of ``jax.ShapeDtypeStruct``.
+
+Sharded: ``train_state_specs`` / ``lm.cache_specs`` give the logical
+specs, ``resolve_shardings`` resolves them against the shapes on the
+rules' mesh, and ``place_tree`` lays a tree out by them (the reference's
+``jax.device_put`` of each leaf).  The steps built with ``rules`` take
+that layout and whole batches.
 """
 from __future__ import annotations
 
@@ -18,7 +23,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm
-from repro_torch.models.modules import no_rules, tree_leaves, tree_map
+from repro_torch.models.modules import tree_leaves, tree_map
+from repro_torch.sharding import local as SL
+from repro_torch.sharding.rules import tree_shardings
 from repro_torch.train import optim
 
 
@@ -38,6 +45,39 @@ def train_state_init(key, cfg: ModelConfig, dtype=torch.bfloat16, *,
     return {"params": params, "opt": optim.adamw_init(params)}
 
 
+def train_state_specs(cfg: ModelConfig):
+    ps = lm.lm_specs(cfg)
+    return {"params": ps, "opt": optim.adamw_specs(ps)}
+
+
+# -- logical->sharding resolution ---------------------------------------------------
+
+def resolve_shardings(rules, spec_tree, shape_tree):
+    """spec_tree of logical tuples + a tree of tensors (or ``ShapeDtype``
+    records) -> ``sharding.NamedSharding``s, one per leaf."""
+    return tree_shardings(rules, spec_tree, shape_tree)
+
+
+def place_tree(tree, shardings):
+    """Every leaf of ``tree`` (whole on every rank) as a DTensor laid out
+    by its ``NamedSharding``: each rank keeps its own shards, nothing is
+    communicated (the reference's ``jax.device_put`` per leaf).  On a mesh
+    of size-1 axes a leaf stays the plain tensor it is."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    if isinstance(tree, dict):
+        return {k: place_tree(tree[k], shardings[k]) for k in tree}
+    if SL.is_dtensor(tree):
+        tree = tree.full_tensor()
+    if not shardings.dtensors:
+        return tree
+    mesh, pl = shardings.device_mesh, shardings.placements
+    if all(mesh.size(i) == 1 for i, p in enumerate(pl)
+           if isinstance(p, Shard)):
+        # every rank's shard is the whole leaf: wrap it, no copy
+        return SL.from_local(tree, mesh, pl, tuple(tree.shape))
+    return distribute_tensor(tree, mesh, pl, src_data_rank=None)
+
+
 # -- train -------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
@@ -51,17 +91,30 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
     The state is updated in place: the returned state holds the tensors
     it was given.  A caller that needs the state from before a step
     clones it first.  ``batch`` holds ``tokens`` (or ``embeds``) and
-    ``labels``, numpy arrays or tensors; they go to the params' device."""
-    no_rules(rules, "make_train_step")
+    ``labels``, numpy arrays or tensors; they go to the params' device.
+
+    With ``rules`` the state is laid out by ``train_state_specs``
+    (``place_tree``), every rank passes the whole batch, and each
+    gradient is brought to its param's placements (the f32 micro-batch
+    sums take them too); the metrics are whole on every rank."""
     oc = oc or optim.OptConfig()
 
     def loss_and_grads(params, leaves, batch):
         loss, metrics = lm.lm_loss(
-            params, cfg, batch, remat=run.remat, chunk_q=run.attn_chunk_q,
-            chunk_kv=run.attn_chunk_kv, device=lm.params_device(params))
+            params, cfg, batch, rules=rules, remat=run.remat,
+            chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv,
+            device=lm.params_device(params))
         # a leaf the loss does not read (a frontend arch's embedding
         # table) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        if rules is not None and rules.dtensors:
+            # one leaf at a time: each old gradient is freed as its
+            # redistributed one is made
+            grads = list(grads)
+            for i, p in enumerate(leaves):
+                if tuple(grads[i].placements) != tuple(p.placements):
+                    grads[i] = grads[i].redistribute(p.device_mesh,
+                                                     p.placements)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state, batch):
@@ -79,7 +132,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
                 if b % nmb:
                     raise ValueError(f"batch {b} is not a multiple of "
                                      f"microbatch {nmb}")
-                acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                acc = [torch.zeros_like(p, dtype=torch.float32)
                        for p in leaves]
                 per_mb = []
                 for i in range(nmb):
@@ -125,36 +178,44 @@ def train_batch_shapes(cfg: ModelConfig, run: RunConfig):
 
 # -- serve: prefill ---------------------------------------------------------------
 
-def make_prefill_step(cfg: ModelConfig, run: RunConfig, rules=None):
-    no_rules(rules, "make_prefill_step")
+def _next_token(logits):
+    """Greedy next token of each row, whole on every rank."""
+    last = logits[:, -1]
+    if SL.is_dtensor(last):
+        last = last.full_tensor()
+    return torch.argmax(last, dim=-1).to(torch.int32)
 
+
+def make_prefill_step(cfg: ModelConfig, run: RunConfig, rules=None):
+    """``prefill_step(params, batch, cache)``; with ``rules`` the params
+    and cache are laid out by ``lm_specs`` / ``cache_specs``
+    (``place_tree``) and the batch is whole on every rank."""
     def prefill_step(params, batch, cache):
         """batch: {"tokens": (B,S)} or {"embeds": (B,S,D)}.  Returns
         (next_tok (B,) int32, the filled cache)."""
         logits, new_cache, _ = lm.forward(
             params, cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), cache=cache, remat="none",
-            chunk_q=run.attn_chunk_q, chunk_kv=run.attn_chunk_kv,
-            logits_last_only=True, device=lm.params_device(params))
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, new_cache
+            embeds=batch.get("embeds"), cache=cache, rules=rules,
+            remat="none", chunk_q=run.attn_chunk_q,
+            chunk_kv=run.attn_chunk_kv, logits_last_only=True,
+            device=lm.params_device(params))
+        return _next_token(logits), new_cache
     return prefill_step
 
 
 # -- serve: decode ----------------------------------------------------------------
 
 def make_decode_step(cfg: ModelConfig, run: RunConfig, rules=None):
-    no_rules(rules, "make_decode_step")
-
+    """``decode_step(params, tokens, cache, cache_pos)``, laid out as
+    ``make_prefill_step``'s."""
     def decode_step(params, tokens, cache, cache_pos):
         """tokens: (B,1) int32 — current token; cache_pos: int or 0-d int32
         = number of tokens so far including this one.  Returns (next_tok,
         new_cache)."""
         logits, new_cache, _ = lm.forward(
             params, cfg, tokens=tokens, cache=cache, cache_pos=cache_pos,
-            remat="none", device=lm.params_device(params))
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, new_cache
+            rules=rules, remat="none", device=lm.params_device(params))
+        return _next_token(logits), new_cache
     return decode_step
 
 

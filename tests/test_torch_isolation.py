@@ -36,6 +36,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.train.steps, repro_torch.train.optim\n"
         "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules\n"
+        "import repro_torch.sharding.local\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")

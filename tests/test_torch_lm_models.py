@@ -25,6 +25,7 @@ from repro_torch.models import modules as TM  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models import recurrent as TR  # noqa: E402
 from repro_torch.models.modules import tree_map  # noqa: E402
+from repro_torch.sharding import local as SL  # noqa: E402
 
 from _torch_lm import MODULE_ATOL, MODULE_RTOL, close, np_tree  # noqa: E402
 
@@ -212,14 +213,30 @@ def test_local_attn_route_shapes():
 
 
 def test_rules_are_refused_until_m12b():
+    """With rules on a mesh axis above 1 the sharded forms take DTensors
+    laid out on the rules' mesh (``train.steps.place_tree``): plain
+    tensors are refused.  On a mesh of size-1 axes the tensors are plain:
+    attention runs as without rules, the MoE takes its capacity body."""
+    from types import SimpleNamespace
+
+    from repro_torch.sharding import Rules
+
+    def rules(n):
+        return Rules(SimpleNamespace(axis_names=("data", "model"),
+                                     shape={"data": n, "model": n}))
     rng = np.random.default_rng(6)
     q = _t(_normal(rng, 1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="M12b"):
-        TA.flash_attention(q, q, q, rules=object())
+    with pytest.raises(ValueError, match="DTensor"):
+        TA.flash_attention(q, q, q, rules=rules(2))
+    assert torch.equal(TA.flash_attention(q, q, q, rules=rules(1)),
+                       TA.flash_attention(q, q, q))
     cfg = smoke_variant(ARCHS["mixtral-8x22b"])
     p = TMOE.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match="M12b"):
-        TMOE.moe_apply(p, torch.zeros(1, 4, cfg.d_model), cfg, rules=object())
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(ValueError, match="DTensor"):
+        TMOE.moe_apply(p, x, cfg, rules=rules(2))
+    y, _, drop = TMOE.moe_apply(p, x, cfg, rules=rules(1))
+    assert y.shape == x.shape and not SL.is_dtensor(y) and 0 <= drop < 1
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])

@@ -92,17 +92,23 @@ def test_world1_link_equals_reference(gloo_mesh):
 
 
 def test_mesh_helpers(gloo_mesh):
-    from repro_torch.launch import make_host_mesh, make_mesh_compat
+    from repro_torch.launch import Mesh, make_host_mesh, make_mesh_compat
     assert gloo_mesh.shape == {"data": 1}
     assert make_mesh_compat((1,), ("data",)) == gloo_mesh    # one key
     host = make_host_mesh()
     assert host.shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError, match="ranks"):
         make_mesh_compat((2,), ("data",))
-    with pytest.raises(ValueError, match="one axis"):
+    with pytest.raises(ValueError, match="ranks"):
         make_mesh_compat((2, 2), ("data", "model"))
     with pytest.raises(ValueError, match="model"):
         make_host_mesh(model=2)
+    # two axes above 1 are a mesh for the LM's rules; the SN runner, one
+    # shard per rank, refuses them
+    grid = Mesh(group=gloo_mesh.group, axis_names=("data", "model"),
+                sizes=(2, 2))
+    with pytest.raises(ValueError, match="one axis"):
+        TA.ShardMapRunner(mesh=grid, axis="data", device="cpu")
     runner = TA.ShardMapRunner(mesh=host, axis="data", device="cpu")
     assert runner.shards == 1
     assert TA.make_runner(TA.ERConfig(runner="shard_map"), mesh=gloo_mesh,

@@ -5,6 +5,8 @@ cross between the packages both ways (bf16 included: the reference's
 resume determinism and falling loss, as ``tests/test_checkpoint_loop.py``
 holds them for the reference — with the port's loop losses against the
 reference's on the same state and data."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
 from repro_torch.data.corpus import TokenBatcher  # noqa: E402
 from repro_torch.models.convert import train_state_from_reference  # noqa: E402
 from repro_torch.models.modules import tree_items, tree_map  # noqa: E402
+from repro_torch.sharding import local as SL  # noqa: E402
 from repro_torch.train import optim as topt  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
 from repro_torch.train.checkpoint import Checkpointer  # noqa: E402
@@ -56,6 +59,22 @@ def setup(tmp_path):
     return rcfg, cfg, step, ref, state, batcher, tmp_path
 
 
+@contextlib.contextmanager
+def _host_rules():
+    """``Rules`` on the port's (1, 1) mesh of a world-size-1 gloo group,
+    destroyed after unless one existed before."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.sharding import Rules
+    started = not dist.is_initialized()
+    try:
+        yield Rules(make_host_mesh(device="cpu"))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def clone(state):
     return tree_map(torch.clone, state)
 
@@ -78,8 +97,15 @@ def test_checkpoint_roundtrip(setup):
     shapes = tree_map(lambda t: tsteps.ShapeDtype(tuple(t.shape), t.dtype),
                       state2)
     assert_equal_states(ck.restore(1, shapes, device="cpu"), state2)
-    with pytest.raises(NotImplementedError, match="M12b-2"):
-        ck.restore(1, shapes, device="cpu", shardings={})
+    # onto a (1, 1) mesh, whose layouts are whole tensors: plain tensors
+    # (a mesh axis above 1 gives DTensors: test_torch_sharded.py)
+    cfg = setup[1]
+    with _host_rules() as rules:
+        sh = tsteps.resolve_shardings(rules, tsteps.train_state_specs(cfg),
+                                      shapes)
+        back = ck.restore(1, shapes, device="cpu", shardings=sh)
+        assert not any(SL.is_dtensor(t) for _, t in tree_items(back))
+        assert_equal_states(back, state2)
 
 
 def test_atomic_no_partial_checkpoints(setup):
@@ -214,7 +240,24 @@ def test_loss_decreases_over_training(setup):
 
 
 def test_loop_shardings_not_ported(setup):
-    _, _, step, _, state, batcher, tmp = setup
-    with pytest.raises(NotImplementedError, match="M12b-2"):
-        train_loop(step, state, batcher, Checkpointer(tmp / "s"),
-                   LoopConfig(total_steps=1), shardings={})
+    """``train_loop(shardings=)`` on a (1, 1) mesh: a fault restores the
+    checkpoint by its shardings, and the run ends on the unsharded run's
+    state."""
+    _, cfg, step, _, state, batcher, tmp = setup
+    lc = LoopConfig(total_steps=4, ckpt_every=2, log_every=100)
+    want, _ = train_loop(step, clone(state), batcher,
+                         Checkpointer(tmp / "plain"), lc)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, 4, "train"),
+                    fsdp=False, remat="none")
+    with _host_rules() as rules:
+        sh = tsteps.resolve_shardings(rules, tsteps.train_state_specs(cfg),
+                                      state)
+        got, stats = train_loop(
+            tsteps.make_train_step(cfg, run, rules, topt.OptConfig(**OPT)),
+            tsteps.place_tree(clone(state), sh), batcher,
+            Checkpointer(tmp / "s"), lc, shardings=sh, inject_fault_at=3)
+        assert stats.restores == 1
+        # the (1, 1) mesh's layouts are whole tensors: kept plain
+        assert not any(SL.is_dtensor(t) for _, t in tree_items(got))
+    for (k, x), (_, y) in zip(tree_items(got), tree_items(want)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5, msg=k)

@@ -76,3 +76,49 @@ def test_local_attn_refuses_an_operand_that_requires_grad(cuda):
     with pytest.raises(ValueError, match="no backward"):
         ops.local_attn(q.requires_grad_(), k, v, window=64)
     assert ops.launch_counts()["local_attn"] == before
+
+
+@pytest.mark.gpu
+def test_sharded_steps_on_the_card_mesh(cuda):
+    """The sharding rules on the card's (1, 1) NCCL mesh (plain tensors):
+    the prefill runs K4 on each local layer and gives the unsharded
+    prefill's tokens; a train step gives the unsharded step's loss and
+    grad norm."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.sharding import Rules
+    cfg, batch = _gemma_shaped()
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", S, B, "train"))
+    n_local = cfg.pattern.count("attn_local") * cfg.n_groups
+    started = not dist.is_initialized()
+    try:
+        rules = Rules(make_host_mesh(device=cuda), fsdp=True)
+        params = lm.lm_init(0, cfg, torch.float32, device=cuda)
+        want, _ = steps.make_prefill_step(cfg, run)(
+            params, batch, lm.cache_init(cfg, B, S, torch.float32,
+                                         device=cuda))
+        sp = steps.place_tree(params, steps.resolve_shardings(
+            rules, lm.lm_specs(cfg), params))
+        cache = lm.cache_init(cfg, B, S, torch.float32, device=cuda)
+        cache = steps.place_tree(cache, steps.resolve_shardings(
+            rules, lm.cache_specs(cfg), cache))
+        ops.reset_launch_counts()
+        got, _ = steps.make_prefill_step(cfg, run, rules)(sp, batch, cache)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["local_attn"] == n_local
+        assert torch.equal(got, want)
+        state = {"params": params, "opt": optim.adamw_init(params)}
+        placed = steps.place_tree(tree_map(torch.clone, state),
+                                  steps.resolve_shardings(
+                                      rules, steps.train_state_specs(cfg),
+                                      state))
+        _, m_want = steps.make_train_step(cfg, run)(state, batch)
+        _, m_got = steps.make_train_step(cfg, run, rules)(placed, batch)
+        assert float(m_got["loss"]) == pytest.approx(
+            float(m_want["loss"]), rel=1e-5)
+        assert float(m_got["grad_norm"]) == pytest.approx(
+            float(m_want["grad_norm"]), rel=1e-4)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

@@ -78,6 +78,22 @@ def test_engine_parts_equal_reference(engine, halo_len, mode, kw):
         assert int(got["cand_count"].sum()) > 0
 
 
+@pytest.mark.parametrize("halo_len,mode", [(0, "all"), (4, "native")])
+def test_band_matches_equal_reference(halo_len, mode):
+    """``band_matches``: the scored band thresholded, on a seeded band of
+    3 shards, against the reference shard by shard."""
+    ref_m, port_m = paper_cascades()
+    ref_shards, port = _sorted_shards(11, 3, 40, 10)
+    got = TW.band_matches(port, 6, port_m, halo_len=halo_len, mode=mode)
+    n = 0
+    for s, e in enumerate(ref_shards):
+        want = np.asarray(RW.band_matches(e, 6, ref_m, halo_len=halo_len,
+                                          mode=mode))
+        np.testing.assert_array_equal(to_np(got[s]), want)
+        n += int(want.sum())
+    assert n > 0
+
+
 def test_linkage_band_mask_equals_reference():
     ref_m, port_m = paper_cascades()
     ref_shards, port = _sorted_shards(8, 2, 30, 6)
