@@ -123,6 +123,21 @@ Run from the root of a checkout.  Phases, one JSON line each:
               forward on the same weights
               (TRAIN_BF16_LOSS_TOL); no kernel launched (K4 has no
               backward: training takes the plain scan)
+ 15. shard    the sharding rules on a world-size-1 NCCL (1, 1) mesh:
+              Gemma-2-9B's one-period prefill with and without rules
+              (K4 once per local layer), Qwen3-MoE-235B-A22B trained at
+              full width on one layer through the capacity dispatch
+ 16. dryrun   the dry run (``repro_torch.launch.dryrun``): DRYRUN_CELLS
+              traced on the production meshes (fake CUDA tensors on a
+              512-rank fake group) by its CLI in background processes
+              started after phase 1, each to status "ok" and Gemma-2's
+              prefill_32k holding one K4 op per local layer; phase 15's
+              two steps dry-run on the (1, 1) mesh and then run for real:
+              op counts, dot and kernel FLOPs and argument bytes equal,
+              K4 ops traced = K4 launched, the predicted peak within
+              DRYRUN_MEM_RTOL of max_memory_allocated; the deprecated
+              ``core.pipeline`` shims at N_PARITY equal to the resolve;
+              then the process holds neither JAX nor the reference
 
 Phases 4, 5 and 7-14 each set every launch count to 0 just before they
 drive their path and read the counts just after; each raises if a kernel
@@ -131,7 +146,8 @@ every resolve (every pass of a multi-pass one), phase 10 if it was not
 launched on every chunk it resolved, phase 11 if it was not launched
 on every delta call, phase 12 if not on every pallas shard program, and
 phase 13 unless K4 ran 21 times in each of its K4-routed prefill calls,
-and phase 14 if any kernel was launched.
+and phase 14 if any kernel was launched; phases 15 and 16 count their
+prefills' K4 launches (one per local layer).
 A replayed CUDA graph launches without the host: the cache adds the
 launches its capture recorded on every replay, so the counts hold for
 replays too.  Phases 7-14 start from an empty executable cache and raise
@@ -298,6 +314,22 @@ SHARD_ORACLE_LOSS_TOL = 1e-2
 # version of this script, when every program ran eagerly (PERF.md §5);
 # a constant, printed beside this run's readings, never measured here
 SERVE_PROGRAM_MS_EAGER_EARLIER = 12.6
+# phase dryrun: (1) cells of the dry run (``repro_torch.launch.dryrun``)
+# traced on the production meshes of a 512-rank fake process group with
+# fake CUDA tensors: one of each kind on the single-pod mesh (Gemma-2's
+# prefill puts K4's op in the trace) and one on the multi-pod mesh,
+# chosen by their trace times (PERF.md §4)
+DRYRUN_CELLS = (("gemma2-9b", "prefill_32k", "single"),
+                ("phi4-mini-3.8b", "train_4k", "single"),
+                ("gemma2-9b", "decode_32k", "single"),
+                ("qwen3-moe-235b-a22b", "decode_32k", "multi"))
+CARD_BYTES = 80e9           # the H100's device memory, for the cells' lines
+DRYRUN_WAIT_S = 1000        # the cells' processes, from their start
+# (2) phase shard's two full-width steps dry-run on the card's (1, 1) mesh
+# and then run for real: the predicted peak (arguments + temporaries)
+# within DRYRUN_MEM_RTOL of the measured max_memory_allocated less what
+# was allocated before the step's inputs
+DRYRUN_MEM_RTOL = 0.10
 
 
 def emit(obj) -> None:
@@ -3170,6 +3202,323 @@ def phase_shard():
     return rec
 
 
+def _start_dry_cells():
+    """Part 1 of phase dryrun, started early: each of DRYRUN_CELLS traced
+    by the dry run's own CLI (``python -m repro_torch.launch.dryrun --arch
+    A --shape S --mesh M --tag chip``, fake CUDA tensors on a fake world
+    of 512 ranks) in a process of its own, in the background: a cell's
+    trace is host work (a prefill_32k unrolls ~10^6 ops), so the cells
+    run beside the earlier phases.  Returns {cell: (process, log)}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    (ROOT / "build").mkdir(exist_ok=True)
+    from repro_torch.launch.dryrun import ART_DIR
+    procs = {}
+    for arch, shape, mk in DRYRUN_CELLS:
+        (ART_DIR / f"{arch}_{shape}_{mk}_chip.json").unlink(missing_ok=True)
+        log = open(ROOT / "build" / f"dryrun_{arch}_{shape}_{mk}.log", "w")
+        procs[(arch, shape, mk)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mk, "--tag", "chip"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def _stop(procs) -> None:
+    for p, log in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _dry_cells(procs, started):
+    """Part 1 of phase dryrun, collected: each cell's record (its
+    artifact under experiments/dryrun_torch/) to status "ok", the Gemma-2
+    prefill holding one K4 op per local layer; a line per cell."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    out = []
+    for (arch, shape, mk), (p, log) in procs.items():
+        try:
+            p.wait(timeout=max(1.0, DRYRUN_WAIT_S - (time.perf_counter()
+                                                     - started)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dryrun {arch} x {shape} x {mk}: not done "
+                                 f"{DRYRUN_WAIT_S} s after its start")
+        path = D.ART_DIR / f"{arch}_{shape}_{mk}_chip.json"
+        rec = json.loads(path.read_text()) if path.exists() else {
+            "status": "missing", "error": f"rc {p.returncode}",
+            "traceback": Path(log.name).read_text()[-3000:]}
+        if p.returncode != 0 or rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} x {shape} x {mk}: "
+                                 f"{rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+        an, ma = rec["analysis"], rec["memory_analysis"]
+        k4 = rec["ops"].get("repro_torch.local_attn.default", 0)
+        cfg = get_config(arch)
+        n_local = cfg.n_groups * cfg.pattern.count("attn_local")
+        if shape.startswith("prefill") and k4 != n_local:
+            raise AssertionError(f"dryrun {arch} x {shape}: {k4} K4 ops "
+                                 f"traced, want {n_local}")
+        peak = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        line = {"arch": arch, "shape": shape, "mesh": mk,
+                "devices": rec["devices"], "dot_flops": an["dot_flops"],
+                "kernel_flops": an["kernel_flops"], "flops": rec["flops"],
+                "collective_bytes": an["collective_bytes"],
+                "collectives": {k: [v["count"], v["bytes"]] for k, v in
+                                an["collectives"].items() if v["count"]},
+                "memory_analysis": ma, "predicted_peak_bytes": peak,
+                "predicted_share_of_card": peak / CARD_BYTES,
+                "k4_ops": k4, "ops": an["n_computations"],
+                "build_s": rec["build_s"], "trace_s": rec["trace_s"],
+                "total_s": rec["total_s"]}
+        emit(dict({"phase": "dryrun/cell"}, **line))
+        out.append(line)
+    return out
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under a tree of tensors."""
+    import torch
+    seen = {}
+    for t in torch.utils._pytree.tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _dry_vs_real(label, step, fake_args, mode, make_args):
+    """Dry-run ``step`` on ``fake_args`` (of ``mode``), then run it for real
+    on ``make_args()`` recorded the same way.  Gates: op counts by name,
+    dot and kernel FLOPs equal; the traced K4 ops equal K4's launches;
+    the predicted argument bytes equal the real inputs' bytes; the
+    predicted peak within DRYRUN_MEM_RTOL of the measured one."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.perf import trace_analysis as T
+    dry, dry_s = wall(lambda: D.trace(step, fake_args, mode))
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    args = make_args()
+    arg_bytes = _storage_bytes(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    real, real_s = wall(lambda: D.trace(step, args))
+    launches = ops.launch_counts()
+    measured = torch.cuda.max_memory_allocated() - before
+    del args
+    da, ra = T.analyze(dry), T.analyze(real)
+    dm = T.memory_analysis(dry)
+    predicted = dm["argument_size_in_bytes"] + dm["temp_size_in_bytes"]
+    k4 = dry.ops.get("repro_torch.local_attn.default", 0)
+    rec = {"label": label, "ops_equal": dry.ops == real.ops,
+           "n_ops": ra["n_computations"],
+           "dot_flops": [da["dot_flops"], ra["dot_flops"]],
+           "kernel_flops": [da["kernel_flops"], ra["kernel_flops"]],
+           "k4_traced": k4, "launches": launches,
+           "argument_bytes": [dm["argument_size_in_bytes"], arg_bytes],
+           "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": measured,
+           "peak_rel_err": predicted / measured - 1.0,
+           "mem_rtol": DRYRUN_MEM_RTOL, "dry_s": dry_s, "real_s": real_s}
+    if not rec["ops_equal"]:
+        diff = {k: (dry.ops.get(k, 0), real.ops.get(k, 0))
+                for k in set(dry.ops) | set(real.ops)
+                if dry.ops.get(k, 0) != real.ops.get(k, 0)}
+        raise AssertionError(f"dryrun {label}: op counts differ {diff}")
+    if da["dot_flops"] != ra["dot_flops"] or \
+            da["kernel_flops"] != ra["kernel_flops"]:
+        raise AssertionError(f"dryrun {label}: FLOPs {rec['dot_flops']} "
+                             f"{rec['kernel_flops']} (dry, real)")
+    if k4 != launches["local_attn"]:
+        raise AssertionError(f"dryrun {label}: {k4} K4 ops traced, "
+                             f"{launches['local_attn']} launched")
+    if dm["argument_size_in_bytes"] != arg_bytes:
+        raise AssertionError(f"dryrun {label}: argument bytes "
+                             f"{rec['argument_bytes']} (dry, real)")
+    if not abs(predicted - measured) <= DRYRUN_MEM_RTOL * measured:
+        raise AssertionError(f"dryrun {label}: predicted peak {predicted} "
+                             f"vs measured {measured}")
+    return rec
+
+
+def _dry_prefill(rules):
+    """Phase shard's Gemma-2-9B one-period prefill of SHARD_PROMPT tokens
+    at batch 1, dry and real."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    base = get_config(SHARD_LM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=len(base.pattern))
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "prefill_8k", SHARD_PROMPT, 1, "prefill"))
+    step = steps.make_prefill_step(cfg, run, rules)
+    dev = torch.device("cuda")
+    mode = FakeTensorMode()
+    trees = ((D.shapes_of(lm.lm_init, 0, cfg, torch.bfloat16, device=dev),
+              lm.lm_specs(cfg)),
+             (steps.serve_batch_shapes(cfg, run, decode=False),
+              steps.serve_batch_spec(cfg, decode=False)),
+             (steps.cache_shapes(cfg, run), lm.cache_specs(cfg)))
+    fake = tuple(D.fake_shards(mode, sh, steps.resolve_shardings(
+        rules, spec, sh), dev) for sh, spec in trees)
+
+    def make_args():
+        gen = torch.Generator("cuda").manual_seed(SHARD_SEED)
+        params = lm.lm_init(gen, cfg, torch.bfloat16, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (1, SHARD_PROMPT),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        cache = lm.cache_init(cfg, 1, SHARD_PROMPT, torch.bfloat16,
+                              device="cuda")
+        return params, {"tokens": toks}, cache
+
+    return _dry_vs_real(f"{SHARD_LM_ARCH} prefill {SHARD_PROMPT} (1 period)",
+                        step, fake, mode, make_args)
+
+
+def _dry_moe_train(rules):
+    """Phase shard's Qwen3-MoE-235B-A22B one-layer train step on a
+    SHARD_MOE_SEQ-token sequence at batch 1, dry and real."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train import optim, steps
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    base = get_config(SHARD_MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=len(base.pattern))
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train_4k", SHARD_MOE_SEQ, 1, "train"), remat="block")
+    step = steps.make_train_step(cfg, run, rules, optim.OptConfig(
+        lr=3e-4, warmup_steps=2))
+    dev = torch.device("cuda")
+    mode = FakeTensorMode()
+    trees = ((D.shapes_of(steps.train_state_init, 0, cfg, torch.bfloat16,
+                          device=dev), steps.train_state_specs(cfg)),
+             (steps.train_batch_shapes(cfg, run),
+              steps.train_batch_spec(cfg, run)))
+    fake = tuple(D.fake_shards(mode, sh, steps.resolve_shardings(
+        rules, spec, sh), dev) for sh, spec in trees)
+
+    def make_args():
+        gen = torch.Generator("cuda").manual_seed(SHARD_SEED + 1)
+        state = steps.train_state_init(gen, cfg, torch.bfloat16,
+                                       device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (1, SHARD_MOE_SEQ),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        return state, {"tokens": toks, "labels": toks.clone()}
+
+    return _dry_vs_real(f"{SHARD_MOE_ARCH} train {SHARD_MOE_SEQ} (1 layer)",
+                        step, fake, mode, make_args)
+
+
+def _shims():
+    """Part 3 of phase dryrun: the deprecated ``core.pipeline`` shims on the
+    card at N_PARITY: ``run_vmap`` with ``SNConfig(variant="jobsn")`` gives
+    ``api.resolve``'s (vmap runner, scan engine) packed blocked and matched
+    sets."""
+    import warnings
+
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.api.results import pack_pair_set
+    from repro_torch.core import entities as E
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.match import paper_cascade
+    from repro_torch.core.partition import balanced_partition
+    ents = E.synth_entities(np.random.default_rng(1), N_PARITY,
+                            n_keys=N_KEYS, dup_frac=0.2, text_len=16)
+    bounds = balanced_partition(np.asarray(ents["key"].cpu()), R)
+    res, res_s = wall(lambda: api.resolve(ents, api.ERConfig(**_cfg_kw(
+        variant="jobsn", runner="vmap", band_engine="scan")), bounds=bounds,
+        device="cuda"))
+    cfg = PL.SNConfig(window=W, variant="jobsn", hops=HOPS,
+                      matcher=paper_cascade())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        out, shim_s = wall(lambda: PL.run_vmap(ents, R, bounds, cfg))
+        got = (np.sort(pack_pair_set(PL.blocked_pairs(out))),
+               np.sort(pack_pair_set(PL.result_pairs(out))))
+    want = _packed_sets(res)
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"dryrun shims: blocked {got[0].size} vs "
+                             f"{want[0].size}, matched {got[1].size} vs "
+                             f"{want[1].size}")
+    return {"n": N_PARITY, "variant": "jobsn", "blocked": int(got[0].size),
+            "matched": int(got[1].size), "shim_s": shim_s,
+            "resolve_s": res_s}
+
+
+def phase_dryrun(procs, started):
+    """The dry-run tooling (M12c) on the card: (1) DRYRUN_CELLS traced on
+    the production meshes with fake CUDA tensors (nothing allocated,
+    nothing launched), in background processes started before phase
+    kernel (``_start_dry_cells``) and collected here; (2) phase shard's
+    two full-width steps dry-run on the card's (1, 1) NCCL mesh and run
+    for real, the trace against the real step's record (its launch counts
+    are set to 0 just before the real steps and read just after: K4 once,
+    in the prefill); (3) the ``core.pipeline`` shims at N_PARITY.  The
+    group is destroyed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.sharding import Rules
+
+    _fresh_cache()
+    lap = _Laps()
+    cells = _dry_cells(procs, started)
+    lap("cells")
+    rules = Rules(make_host_mesh(device="cuda"), fsdp=True)
+    try:
+        prefill = _dry_prefill(rules)
+        emit(dict({"phase": "dryrun/prefill"}, **prefill))
+        lap("prefill")
+        torch.cuda.empty_cache()
+        train = _dry_moe_train(rules)
+        emit(dict({"phase": "dryrun/moe_train"}, **train))
+        lap("moe_train")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    shims = _shims()
+    lap("shims")
+    launches = {k: prefill["launches"][k] + train["launches"][k]
+                for k in prefill["launches"]}
+    rec = {"phase": "dryrun", "cells": len(cells), "launches": launches,
+           "cells_wall_s": time.perf_counter() - started,
+           "peak_rel_err": {"prefill": prefill["peak_rel_err"],
+                            "moe_train": train["peak_rel_err"]},
+           "shims": shims, "nvidia_smi": nvidia_smi(),
+           "laps_s": lap.seconds}
+    emit(rec)
+    _fresh_cache()
+    return rec
+
+
+def _isolation() -> None:
+    """After every phase (the dry run and the shims included) the process
+    holds neither JAX nor the reference package."""
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "jaxlib", "repro"))
+    if bad:
+        raise AssertionError(f"the port loaded {bad[:5]}")
+
+
 def main() -> int:
     # the flex_attention yardstick compiles; keep its caches in build/
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -3204,6 +3553,15 @@ def main() -> int:
         return out
 
     dev = timed("device", phase_device)
+    dry_started = time.perf_counter()
+    dry_procs = _start_dry_cells()
+    try:
+        return _run_phases(dev, dry_procs, dry_started, timed, seconds)
+    finally:
+        _stop(dry_procs)
+
+
+def _run_phases(dev, dry_procs, dry_started, timed, seconds) -> int:
     timed("build", phase_build)
     recs = timed("kernel", phase_kernel)
     bands = timed("bands", phase_bands, recs)
@@ -3221,6 +3579,8 @@ def main() -> int:
     served_lm = timed("lm", phase_lm)
     trained = timed("train", phase_train)
     shard = timed("shard", phase_shard)
+    dry = timed("dryrun", phase_dryrun, dry_procs, dry_started)
+    _isolation()
     emit({"phase_seconds": seconds})
     # launches on each kernel's path: K1 on the resolve paths (main,
     # planned, quality, stream and its checkpointed run, serve's delta
@@ -3237,7 +3597,8 @@ def main() -> int:
                 "jaccard_band": bands["launches"]["jaccard_band"],
                 "local_attn": attention["launches"]["local_attn"]
                 + served_lm["launches"]["local_attn"]
-                + shard["launches"]["local_attn"]}
+                + shard["launches"]["local_attn"]
+                + dry["launches"]["local_attn"]}
     # phase train launches none of them (checked there): its 0s counted
     launches = {k: n + trained["launches"][k] for k, n in launches.items()}
     replaces = {"fused_band": "src/repro/kernels/fused_band.py:33",

@@ -300,6 +300,12 @@ class MultiPassResult:
 
 # -- pair extraction (band mask -> host pairs) --------------------------------------
 
+def _host(x) -> np.ndarray:
+    """An array, or a tensor on any device, as a host numpy array."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") \
+        else np.asarray(x)
+
+
 def packed_pairs_from_idx(part: dict, field: str = "match") -> np.ndarray:
     """Device-emitted packed indices -> deduplicated packed pair array.
 
@@ -308,10 +314,10 @@ def packed_pairs_from_idx(part: dict, field: str = "match") -> np.ndarray:
     and ``<field>_n`` (r,) valid counts (window.emit_band_indices).  Eid
     translation is vectorized: one mask + two fancy gathers + ``unique_packed``
     over ~cap slots instead of an O(r*w*M) band scan."""
-    eid = np.asarray(part["eid"] if "eid" in part
-                     else part["ents"]["eid"])            # (r, M)
-    idx = np.asarray(part[field + "_idx"])                # (r, cap)
-    cnt = np.asarray(part[field + "_n"]).reshape(-1)      # (r,)
+    eid = _host(part["eid"] if "eid" in part
+                else part["ents"]["eid"])                 # (r, M)
+    idx = _host(part[field + "_idx"])                     # (r, cap)
+    cnt = _host(part[field + "_n"]).reshape(-1)           # (r,)
     m = eid.shape[1]
     keep = np.arange(idx.shape[1])[None, :] < cnt[:, None]
     ss, pp = np.nonzero(keep)
@@ -340,8 +346,8 @@ def packed_pairs_from_band(part: dict, field: str = "match") -> np.ndarray:
     boolean band ``field`` of shape (r, w-1, M); band[s, d-1, i] pairs slot i
     with slot i+d of shard s.  One batched nonzero + pack + ``unique_packed`` —
     no Python pair objects anywhere on the path."""
-    eid = np.asarray(part["ents"]["eid"])                 # (r, M)
-    band = np.asarray(part[field])                        # (r, w-1, M)
+    eid = _host(part["ents"]["eid"])                      # (r, M)
+    band = _host(part[field])                             # (r, w-1, M)
     ss, ds, iis = np.nonzero(band)
     if ss.size == 0:
         return np.empty((0,), PACKED_DTYPE)

@@ -73,11 +73,13 @@ def _apply_plan(ents: dict, bounds, r: int, cfg):
 def _run_program(program, head: tuple, cap_link, args: tuple, cfg):
     """``program(*args)`` through the executable cache under the key
     ``head + (cfg statics, cap_link, input fingerprint)``, or eagerly when
-    ``cfg.jit_cache`` is off."""
-    if not cfg.jit_cache:
+    ``cfg.jit_cache`` is off or ``cfg`` has no static fingerprint (a
+    legacy ``core.pipeline.SNConfig``), as the reference's runners do."""
+    fp = getattr(cfg, "static_fingerprint", None)
+    if not getattr(cfg, "jit_cache", True) or fp is None:
         return program(*args)
     call = PC.executable_cache().get_or_build(
-        head + (cfg.static_fingerprint(), cap_link,
+        head + (fp(), cap_link,
                 PC.tree_fingerprint(args)),
         lambda: program)
     return call(*args)
@@ -463,7 +465,7 @@ class SequentialRunner:
             score, _ = matcher.combined(pa, pb, skip=False)
             return score >= matcher.threshold
 
-        if cfg.jit_cache:
+        if getattr(cfg, "jit_cache", True):
             scorer = PC.executable_cache().get_or_build(
                 ("seq_match", matcher, chunk, PC.tree_fingerprint(payload)),
                 lambda: program)

@@ -286,6 +286,20 @@ def jaccard_band(sig: torch.Tensor, *, window: int,
 ATTN_HEAD_DIMS = (64, 128, 256)
 
 
+@torch.library.custom_op("repro_torch::local_attn", mutates_args=())
+def _local_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int, softcap: float) -> torch.Tensor:
+    """K4 as one registered op: its launch on real CUDA tensors, and under
+    ``FakeTensorMode`` the shape rule below, so that a dry run
+    (``launch.dryrun``) traces the card's route through it as one op."""
+    return _launch_local_attn(q, k, v, window, softcap)
+
+
+@_local_attn_op.register_fake
+def _(q, k, v, window, softcap):
+    return torch.empty_like(q)
+
+
 def _launch_local_attn(q, k, v, window, softcap) -> torch.Tensor:
     bh, s, d = q.shape
     if d not in ATTN_HEAD_DIMS:
@@ -349,5 +363,5 @@ def local_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return local_attention_ref(q, k, v, window=window, softcap=softcap)
     if q.device.type == "cuda":
-        return _launch_local_attn(q, k, v, window, softcap)
+        return _local_attn_op(q, k, v, int(window), float(softcap))
     raise ValueError(f"local_attn: no kernel for {q.device}")

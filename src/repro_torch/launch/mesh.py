@@ -29,7 +29,7 @@ import functools
 import math
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # a world-size-1 group's collectives never wait on another process; a
 # hang there is a fault, raised after this long
@@ -44,6 +44,9 @@ class Mesh:
     group: Any
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
+    # the device type of the tensors on a "fake" group's mesh (a dry run,
+    # ``launch.dryrun``): a fake group serves any device
+    fake_device: Optional[str] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -54,14 +57,16 @@ class Mesh:
     def device_mesh(self):
         """The ``DeviceMesh`` of this mesh's ranks and axis names, on the
         device type the group's backend serves (NCCL: "cuda", gloo:
-        "cpu"); built on first use, which every rank of the group must
-        reach (it creates one process group per axis)."""
+        "cpu", a fake group: ``fake_device``); built on first use, which
+        every rank of the group must reach (it creates one process group
+        per axis)."""
         import torch
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
         ranks = dist.get_process_group_ranks(self.group)
-        kind = "cuda" if "nccl" in str(dist.get_backend(self.group)) \
-            else "cpu"
+        backend = str(dist.get_backend(self.group))
+        kind = self.fake_device if backend == "fake" else \
+            "cuda" if "nccl" in backend else "cpu"
         return DeviceMesh(kind, torch.tensor(ranks).reshape(self.sizes),
                           mesh_dim_names=self.axis_names)
 
@@ -103,7 +108,34 @@ def make_mesh_compat(shape, axes, *, group=None, device=None) -> Mesh:
     if math.prod(sizes) != world:
         raise ValueError(f"mesh {dict(zip(axes, sizes))} needs "
                          f"{math.prod(sizes)} ranks, the group has {world}")
-    return Mesh(group=group, axis_names=axes, sizes=sizes)
+    fake = None
+    if str(dist.get_backend(group)) == "fake":
+        from repro_torch.device import resolve_device
+        fake = resolve_device(device).type
+    return Mesh(group=group, axis_names=axes, sizes=sizes, fake_device=fake)
+
+
+def make_production_mesh(*, multi_pod: bool = False, group=None,
+                         device=None) -> Mesh:
+    """The reference's production meshes: 16 x 16 = 256 ranks ("data",
+    "model"), or with ``multi_pod`` 2 x 16 x 16 = 512 ("pod", "data",
+    "model"), over ``group`` (None: the default group).  A group of
+    another size raises, and so does the lack of any group: this never
+    starts a world-size-1 group.  ``device`` is the device type of the
+    tensors when the group is a fake one (a dry run, ``launch.dryrun``;
+    None meaning the card)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_compat(shape, axes, group=group, device=device)
+
+
+# H100 SXM5 80GB at its 700 W limit, per card (NVIDIA H100 Tensor Core GPU
+# data sheet: dense bf16 tensor-core peak, HBM3 bandwidth, NVLink 4 at
+# 900 GB/s in both directions together), the port's counterparts of the
+# reference's TPU v5e constants for the roofline
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s
+HBM_BW = 3.35e12                  # B/s
+NVLINK_BW = 450e9                 # B/s each way
 
 
 def make_host_mesh(model: int = 1, *, group=None, device=None) -> Mesh:

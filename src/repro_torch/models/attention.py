@@ -21,9 +21,10 @@ given, updated.
 With ``rules`` (DTensors on the rules' mesh) the projections run under
 DTensor dispatch, and attention itself runs on each rank's own rows and
 KV heads (with their query heads): where the model axis splits the KV
-heads evenly, each rank's share of the projections as it stands, and K4
-takes those local heads; where it does not, the layout the reference
-pins for its chunk-pair scan, uneven chunks of every rank's rows.  On a
+heads evenly, each rank's share of the projections as it stands; where
+it does not, the layout the reference pins for its chunk-pair scan,
+uneven chunks of every rank's rows.  K4 takes a rank's local heads in
+both.  On a
 mesh of size-1 axes the tensors are plain and run as without rules.  A
 sequence-sharded cache (``seq_shard_kv``) is written only on the rank
 whose shard holds the position, and decode reduces its softmax over the
@@ -131,8 +132,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``rules``: q, k and v are DTensors laid out by them (plain tensors on
     a mesh of size-1 axes, which run as without rules), and the attention
     runs on each rank's own rows and KV heads (``_heads_local``); the
-    route above is taken on a rank's local heads only where the model
-    axis splits the KV heads evenly."""
+    route above is taken on a rank's local heads, whether the model axis
+    splits the KV heads evenly or in uneven chunks."""
     if SL.on_mesh(q, rules, "flash_attention"):
         return _heads_local(q, k, v, rules, causal=causal, window=window,
                             logit_softcap=logit_softcap, chunk_q=chunk_q,
@@ -143,8 +144,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_local(q, k, v, *, causal, window, logit_softcap, chunk_q,
-                 chunk_kv, q_offset, allow_k4: bool = True):
-    if allow_k4 and q.device.type == "cuda" and local_attn_route(
+                 chunk_kv, q_offset):
+    if q.device.type == "cuda" and local_attn_route(
             q.shape, k.shape, causal=causal, window=window,
             q_offset=q_offset, requires_grad=(
                 q.requires_grad or k.requires_grad or v.requires_grad)):
@@ -192,11 +193,11 @@ def _heads_local(q, k, v, rules, **kw):
 
     Where the model axis splits the KV heads evenly, each rank takes its
     own heads' shard (nothing is gathered where q, k and v come split so)
-    and the output keeps that layout; K4's route is open there.  Else (the
-    reference's pinned case: uneven ``Shard`` chunks of ceil(KH / m)) each
-    rank takes its rows with every head and attends with its share, its
-    gradient there a partial sum over the model axis, and the output is
-    gathered whole."""
+    and the output keeps that layout.  Else (the reference's pinned case:
+    uneven ``Shard`` chunks of ceil(KH / m)) each rank takes its rows with
+    every head and attends with its share, its gradient there a partial
+    sum over the model axis, and the output is gathered whole.  K4's
+    route is open on the rank's heads in both."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     b, s, h, d = q.shape
     kh = k.shape[2]
@@ -229,7 +230,7 @@ def _heads_local(q, k, v, rules, **kw):
         out = ql[:, :, :0] + (kl[:, :, :0].sum() + vl[:, :, :0].sum())
     else:
         out = _flash_local(ql[:, :, lo * g:hi * g], kl[:, :, lo:hi],
-                           vl[:, :, lo:hi], allow_k4=False, **kw)
+                           vl[:, :, lo:hi], **kw)
     # every rank's heads in place, zero elsewhere, summed
     full = torch.cat([out.new_zeros(out.shape[:2] + (lo * g, d)), out,
                       out.new_zeros(out.shape[:2] + ((kh - hi) * g, d))],
@@ -435,10 +436,8 @@ def decode_attention(q, k_cache, v_cache, cache_pos, *, window: int = 0,
 def _cache_shard(buf):
     """(first slot, slots) of this rank's shard of DTensor cache ``buf``
     on its T dim."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    shape, offset = compute_local_shape_and_global_offset(
-        buf.shape, buf.device_mesh, buf.placements)
+    shape, offset = SL.local_shape_and_offset(buf.shape, buf.device_mesh,
+                                              buf.placements)
     return int(offset[1]), int(shape[1])
 
 
@@ -499,8 +498,6 @@ def _qkv_on_mesh(p, x, cfg, rules, positions, *, own_heads: bool):
     ``own_heads`` only its own heads (the projection's shard of the qkv
     dim, where the model axis splits the KV heads evenly), else every
     head (gathered over the model axis)."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     b, s, _ = x.shape
     hd = cfg.head_dim
     mesh = x.device_mesh
@@ -518,8 +515,8 @@ def _qkv_on_mesh(p, x, cfg, rules, positions, *, own_heads: bool):
     q, k, v = (local(p["wq"], cfg.n_heads), local(p["wk"], cfg.n_kv_heads),
                local(p["wv"], cfg.n_kv_heads))
     if cfg.rope:
-        r0 = int(compute_local_shape_and_global_offset(
-            (b, s), mesh, _rows(rules, (b, s)))[1][0])
+        r0 = SL.local_shape_and_offset((b, s), mesh,
+                                       _rows(rules, (b, s)))[1][0]
         pos = positions[r0:r0 + q.shape[0]] if positions.shape[0] == b \
             else positions
         q = rope_apply(q, pos, cfg.rope_theta)

@@ -167,6 +167,12 @@ def block_apply(p, x, cfg, kind: str, *, rules=None, cache=None,
                                          rules=rules)
     else:
         raise ValueError(kind)
+    if rules is not None:
+        # the mixer's output projection leaves partial sums over the model
+        # axis: reduce them here, as the reference's XLA does after the
+        # projection (left to DTensor, the partial sums would ride through
+        # the norm into the MLP, whose weights it then gathers whole)
+        mix = rules.constrain(mix, ("batch", "residual_seq", None))
 
     if cfg.post_block_norm:
         mix = norm_apply(p["norm1_post"], mix, kind=cfg.norm, eps=cfg.norm_eps)
@@ -189,6 +195,8 @@ def block_apply(p, x, cfg, kind: str, *, rules=None, cache=None,
             mo, aux, _ = moe_mod.moe_apply(p["mlp"], h2, cfg, rules=rules)
         else:
             mo = mlp_apply(p["mlp"], h2, cfg, rules=rules)
+        if rules is not None:
+            mo = rules.constrain(mo, ("batch", "residual_seq", None))
         if cfg.post_block_norm:
             mo = norm_apply(p["norm2_post"], mo, kind=cfg.norm,
                             eps=cfg.norm_eps)

@@ -35,9 +35,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.modules import (_normal, embed_apply, embed_init,
                                         embed_onehot_apply, embed_specs,
-                                        norm_apply, norm_init, norm_specs,
-                                        prepend_layer_axis, softcap,
-                                        stack_init, tree_leaves, tree_map)
+                                        matmul, norm_apply, norm_init,
+                                        norm_specs, prepend_layer_axis,
+                                        softcap, stack_init, tree_leaves,
+                                        tree_map)
 from repro_torch.sharding import local as SL
 
 
@@ -159,12 +160,12 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
         raise ValueError(f"params on {params_device(params)}, forward on "
                          f"{dev}")
     if embeds is not None:
-        x = torch.as_tensor(embeds, device=dev)
+        x = SL.as_device(embeds, dev)
         if rules is not None:
             x = rules.shard_input(x, ("batch", None, None))
         bsz, s = x.shape[:2]
     else:
-        tokens = torch.as_tensor(tokens, device=dev)
+        tokens = SL.as_device(tokens, dev)
         bsz, s = tokens.shape
         if rules is not None:
             tokens = rules.shard_input(tokens, ("batch", None))
@@ -224,9 +225,9 @@ def forward(params, cfg, *, tokens=None, embeds=None, cache=None,
     if logits_last_only and x.shape[1] > 1:
         x = x[:, -1:]
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].to(x.dtype).T
+        logits = matmul(x, params["embed"]["table"].to(x.dtype).T)
     else:
-        logits = x @ params["head"]["w"].to(x.dtype)
+        logits = matmul(x, params["head"]["w"].to(x.dtype))
     if rules is not None:
         logits = rules.constrain(logits, ("batch", None, "vocab"))
     logits = logits.float()
@@ -269,7 +270,7 @@ def lm_loss(params, cfg, batch, *, rules=None, remat="block",
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         rules=rules, remat=remat, chunk_q=chunk_q, chunk_kv=chunk_kv,
         device=device)
-    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    labels = SL.as_device(batch["labels"], logits.device)
     if rules is not None:
         labels = rules.shard_input(labels, ("batch", None))
     mask = labels >= 0

@@ -55,8 +55,17 @@ def dense_specs(in_axis: Optional[str], out_axis: Optional[str],
     return s
 
 
+def matmul(x, w):
+    """``x @ w``; of two DTensors, on each rank's own shards
+    (``sharding.local.matmul``)."""
+    from repro_torch.sharding.local import is_dtensor, matmul as local_mm
+    if is_dtensor(x) and is_dtensor(w):
+        return local_mm(x, w)
+    return x @ w
+
+
 def dense_apply(p, x):
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -103,6 +112,11 @@ def embed_specs():
 
 
 def embed_apply(p, tokens):
+    """``table[tokens]``; of two DTensors, on each rank's own shards
+    (``sharding.local.embedding``)."""
+    from repro_torch.sharding.local import embedding, is_dtensor
+    if is_dtensor(tokens) and is_dtensor(p["table"]):
+        return embedding(p["table"], tokens)
     return p["table"][tokens]
 
 
@@ -111,19 +125,29 @@ def embed_onehot_apply(p, tokens, rules):
     vocab-sharded table the lookup is a shard-local contraction plus a
     sum over the vocab shards, and its table gradient one more.  ``tokens``
     is a DTensor on the rules' mesh (a plain tensor on a mesh of size-1
-    axes); the one-hot rows are built on each rank's own tokens, in the
-    table's dtype (exact: one 1 per row)."""
-    from repro_torch.sharding.local import from_local, is_dtensor
-    v = p["table"].shape[0]
-    tl = tokens.to_local() if is_dtensor(tokens) else tokens
-    oh = torch.zeros(tuple(tl.shape) + (v,), dtype=p["table"].dtype,
-                     device=tl.device)
-    oh.scatter_(-1, tl.long()[..., None], 1)
-    if is_dtensor(tokens):
-        oh = from_local(oh, tokens.device_mesh, tokens.placements,
-                        tuple(tokens.shape) + (v,))
-    oh = rules.constrain(oh, ("batch", None, "vocab"))
-    return oh @ p["table"]
+    axes); each rank builds the one-hot of its own tokens over its own
+    vocab shard only (the one-hot laid out as ("batch", None, "vocab")),
+    in the table's dtype (exact: one 1 per row)."""
+    from repro_torch.sharding.local import (from_local, is_dtensor,
+                                            local_shape_and_offset)
+    table = p["table"]
+    v = table.shape[0]
+    if not is_dtensor(tokens):
+        oh = torch.zeros(tuple(tokens.shape) + (v,), dtype=table.dtype,
+                         device=tokens.device)
+        oh.scatter_(-1, tokens.long()[..., None], 1)
+        return matmul(oh, table)
+    shape = tuple(tokens.shape) + (v,)
+    mesh = tokens.device_mesh
+    want = rules.placements(("batch", None, "vocab"), shape)
+    tokens = rules.constrain(tokens, ("batch", None))
+    (_, _, n), (_, _, lo) = local_shape_and_offset(shape, mesh, want)
+    ids = tokens.to_local().long() - lo
+    inside = ((ids >= 0) & (ids < n))[..., None].to(table.dtype)
+    oh = torch.zeros(tuple(ids.shape) + (n,), dtype=table.dtype,
+                     device=ids.device)
+    oh.scatter_(-1, ids.clamp(0, max(n - 1, 0))[..., None], inside)
+    return matmul(from_local(oh, mesh, want, shape), table)
 
 
 def unembed_apply(p, x):

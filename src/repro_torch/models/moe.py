@@ -131,8 +131,10 @@ def _local_moe(x, wg, w_gate, w_up, w_down, *, cfg, model_rank: int,
     se = local_e[order]
     st = flat_t[order]
     sw = flat_w[order]
-    counts = torch.bincount(se, minlength=e_loc + 1)
-    offs = torch.cumsum(counts, 0) - counts
+    # each id's first position in the sorted ids (the exclusive cumsum of
+    # their counts), of a static shape, which bincount's is not
+    offs = torch.searchsorted(se, torch.arange(e_loc + 1, device=dev,
+                                               dtype=se.dtype))
     pos = torch.arange(se.shape[0], device=dev) - offs[se]
     keep = (pos < cap) & (se < e_loc)
     n_slots = e_loc * cap
@@ -231,6 +233,10 @@ def moe_apply(p, x, cfg, *, rules=None, act_name: str = "silu"):
     xf = x.reshape(b * s, d)
     if SL.on_mesh(x, rules, "moe_apply"):
         out, aux, drop = _moe_sharded(p, xf, cfg, rules, act_name)
+        if tuple(out.placements) != tuple(xf.placements):
+            # the tokens' split back to the rows' (it differs where the
+            # rows did not divide over the batch axes but the tokens do)
+            out = out.redistribute(out.device_mesh, xf.placements)
     elif rules is not None:
         # a mesh of size-1 axes: the body on the whole tensors, no
         # collectives

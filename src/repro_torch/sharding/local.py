@@ -32,6 +32,12 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def as_device(x, device):
+    """``x`` (an array or a tensor) as a tensor on ``device``; a DTensor
+    (a step's input given as each rank's shard) as it is."""
+    return x if is_dtensor(x) else torch.as_tensor(x, device=device)
+
+
 def on_mesh(x, rules, where: str) -> bool:
     """Whether ``x`` takes a body's per-shard form under ``rules``: a
     DTensor does.  A plain tensor takes the one-device form, without rules
@@ -75,6 +81,109 @@ def from_local(local: torch.Tensor, device_mesh, placements, shape):
                               tuple(placements),
                               run_check=False, shape=shape,
                               stride=_contiguous_stride(shape))
+
+
+def local_shape_and_offset(shape, device_mesh, placements) -> tuple:
+    """(local shape, global offset) of this rank's shard of a tensor of
+    global ``shape`` laid out by ``placements`` on ``device_mesh``: each
+    ``Shard`` splits its dim in ``torch.chunk``'s pieces (ceil(n / m)
+    each, the last ones shorter or empty), the mesh dims in order, as
+    DTensor lays it out.  Plain Python on the rank's mesh coordinate, so
+    it reads no tensor (a trace under ``FakeTensorMode`` runs it too)."""
+    from torch.distributed.tensor import Shard
+    coord = device_mesh.get_coordinate()
+    shape, offset = list(shape), [0] * len(shape)
+    for md, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n, c = shape[pl.dim], -(-shape[pl.dim] // device_mesh.size(md))
+            lo = min(coord[md] * c, n)
+            offset[pl.dim] += lo
+            shape[pl.dim] = min(lo + c, n) - lo
+    return tuple(shape), tuple(offset)
+
+
+def matmul(x, w):
+    """``x @ w`` of DTensors x (..., K) and w (K, N) on each rank's own
+    shards, as XLA's SPMD partitioner lays the product out for the
+    reference, per mesh dim:
+
+      x rows split, w whole   -> out rows split   (w's gradient partial)
+      x whole, w's N split    -> out N split      (x's gradient partial)
+      both split on K         -> out a partial sum
+      both whole              -> out whole
+
+    First w is gathered over the mesh dims that split x's rows (its FSDP
+    shards), and a K split on one side alone is matched on the other by
+    a local slice (x) or a gather (w).  Left to DTensor, the product (its
+    backward above all) may gather a weight whole and compute every
+    column or row on every rank.  A partial operand is left to DTensor's
+    own ``x @ w``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    px, pw = list(x.placements), list(w.placements)
+    if any(isinstance(p, Partial) for p in px + pw):
+        return x @ w
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    for i, (a, b) in enumerate(zip(px, pw)):
+        if isinstance(a, Shard) and a.dim < last:
+            pw[i] = Replicate()
+        elif a == Replicate() and b == Shard(0):
+            px[i] = Shard(last)
+        elif a == Shard(last):
+            pw[i] = Shard(0)
+    # per mesh dim: (the output's placement, x's gradient's, w's)
+    lay = []
+    for a, b in zip(px, pw):
+        if isinstance(a, Shard) and a.dim < last:      # rows
+            lay.append((a, a, Partial()))
+        elif b == Shard(1):                             # columns
+            lay.append((Shard(last), Partial(), b))
+        elif b == Shard(0):                             # contraction
+            lay.append((Partial(), a, b))
+        else:
+            lay.append((Replicate(), a, b))
+    out, gx, gw = (list(col) for col in zip(*lay))
+    shape = tuple(x.shape[:-1]) + (w.shape[-1],)
+    y = to_local(x, px, gx) @ to_local(w, pw, gw)
+    return from_local(y, mesh, out, shape)
+
+
+def embedding(table, tokens):
+    """``table[tokens]`` of DTensors table (V, D) and integer tokens, on
+    each rank's own shards: a rank looks its tokens up in its rows of the
+    table, zeros for an id another rank's vocab shard holds, and the rows
+    are summed over the mesh dims that split the vocab (one rank holds
+    each id: the sum is exact); the tokens' own split stays.  A table split
+    over a mesh dim that also splits the tokens is gathered there first.
+    (DTensor's own ``aten.index`` refuses tokens split over two mesh dims,
+    the multi-pod mesh's ("pod", "data") batch.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    tp, kp = list(table.placements), list(tokens.placements)
+    if any(isinstance(p, Partial) for p in tp + kp):
+        return table[tokens]
+    mesh = table.device_mesh
+    out, grad = [], []
+    for i, (w, t) in enumerate(zip(tp, kp)):
+        if isinstance(w, Shard) and (w.dim != 0 or isinstance(t, Shard)):
+            tp[i] = w = Replicate()
+        if isinstance(t, Shard):                    # the tokens' rows
+            out.append(t)
+            grad.append(Partial())
+        elif isinstance(w, Shard):                  # the vocab
+            out.append(Partial())
+            grad.append(w)
+        else:
+            out.append(Replicate())
+            grad.append(w)
+    local = to_local(table, tp, grad)
+    lo = local_shape_and_offset(table.shape, mesh, tp)[1][0]
+    ids = tokens.to_local().long() - lo
+    inside = (ids >= 0) & (ids < local.shape[0])
+    rows = local[ids.clamp(0, max(local.shape[0] - 1, 0))] * \
+        inside[..., None].to(local.dtype)
+    y = from_local(rows, mesh, out, tuple(tokens.shape) + (table.shape[1],))
+    rep = tuple(Replicate() if isinstance(p, Partial) else p for p in out)
+    return y if rep == tuple(out) else y.redistribute(mesh, rep)
 
 
 def replicated(t: torch.Tensor, like):

@@ -209,12 +209,20 @@ class Rules:
 
     def constrain(self, x, logical: Sequence[Optional[str]]):
         """``with_sharding_constraint`` by logical names (uneven dims
-        allowed): a DTensor is redistributed to the spec's placements.  A
-        plain tensor is allowed only where every mesh axis the spec names
-        has size 1 (it is then laid out already); on a real mesh it is a
-        fault and raises."""
+        allowed, but for the batch: rows that the batch axes do not divide
+        stay whole, as ``shard_input`` lays them out, for DTensor has no
+        view of unevenly split rows, such as a (B*S, D) flattening): a
+        DTensor is redistributed to the spec's placements.  A plain tensor
+        is allowed only where every mesh axis the spec names has size 1
+        (it is then laid out already); on a real mesh it is a fault and
+        raises."""
         from torch.distributed.tensor import DTensor
         spec = self.spec(logical)
+        if "batch" in logical and len(logical) == len(x.shape):
+            even = self.spec(logical, tuple(x.shape))
+            spec = PartitionSpec(*(even[i] if name == "batch" else e
+                                   for i, (name, e) in
+                                   enumerate(zip(logical, spec))))
         if isinstance(x, DTensor):
             want = self.spec_placements(spec)
             if tuple(x.placements) == want:
@@ -230,12 +238,17 @@ class Rules:
         """``x``, a tensor every rank holds whole (a step's batch, a
         position grid), as a DTensor laid out by ``logical`` with the
         divisibility rule: each rank keeps its own slice, nothing is
-        communicated.  On a mesh of size-1 axes ``x`` itself."""
-        from torch.distributed.tensor import distribute_tensor
+        communicated.  A DTensor (a batch given as each rank's shard, as
+        a dry run gives it) is brought to that layout.  On a mesh of
+        size-1 axes ``x`` itself."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
         if not self.dtensors:
             return x
-        return distribute_tensor(x, self.device_mesh,
-                                 self.placements(logical, tuple(x.shape)),
+        want = self.placements(logical, tuple(x.shape))
+        if isinstance(x, DTensor):
+            return x if tuple(x.placements) == want else \
+                x.redistribute(self.device_mesh, want)
+        return distribute_tensor(x, self.device_mesh, want,
                                  src_data_rank=None)
 
 

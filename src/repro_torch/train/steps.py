@@ -120,7 +120,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
     def train_step(state, batch):
         params = state["params"]
         dev = lm.params_device(params)
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: SL.as_device(v, dev) for k, v in batch.items()}
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)

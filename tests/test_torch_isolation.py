@@ -38,6 +38,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.launch.train\n"
         "import repro_torch.sharding, repro_torch.sharding.rules\n"
         "import repro_torch.sharding.local\n"
+        "import repro_torch.launch.dryrun, repro_torch.perf.trace_analysis\n"
+        "import repro_torch.core.pipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -63,6 +65,34 @@ def test_no_module_imports_jax_or_reference(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+FAKE_PG = "torch.testing._internal.distributed.fake_pg"
+
+
+def test_fake_pg_only_inside_dryrun():
+    """torch's private fake process group is imported by one module, the
+    dry run, and there only inside its functions (never at import)."""
+    importers = []
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) \
+                else []
+            if any(n.startswith(FAKE_PG) for n in names):
+                importers.append((str(path.relative_to(PKG)),
+                                  id(node) in top))
+    assert importers and all(p == "launch/dryrun.py" and not at_top
+                             for p, at_top in importers), importers
+    code = ("import sys, repro_torch.launch.dryrun\n"
+            f"print({FAKE_PG!r} in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "False", out.stdout
 
 
 def test_chip_smoke_imports_no_jax_or_reference():
