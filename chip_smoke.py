@@ -1092,8 +1092,9 @@ def _breakdown(ents, cfg):
     """One steady resolve taken apart by its trace (``cfg.trace``): the
     ``plan`` span (profile, plan, auto caps), the ``shard_program`` span
     (fenced by a synchronize), the ``collect`` span (host collection into
-    packed pairs) and the ``attempt`` span's own time (the public
-    frozensets, ``PackedOutcome.to_outcome``); plus the device's busy time
+    packed pairs) and the ``frozensets`` spans (the public frozensets,
+    ``PackedOutcome.to_outcome``, with the collector's passes inside them);
+    plus the device's busy time
     over one more shard program (torch.profiler), which must be a replay
     of the resolve's cached graph (one hit, no miss, no trace) whose
     kernel list holds K1 once.  Returns (record, the traced result)."""
@@ -1121,7 +1122,8 @@ def _breakdown(ents, cfg):
     return {"traced_s": traced_s, "plan_s": total["plan"],
             "device_program_s": total["shard_program"],
             "host_collect_packed_s": total["collect"],
-            "frozensets_s": own["attempt"], "resolve_self_s": own["resolve"],
+            "frozensets_s": total["frozensets"],
+            "resolve_self_s": own["resolve"],
             "span_coverage": res.trace.coverage(),
             "device_kernel_busy_s": busy_s, "top_kernels_s": top,
             "replay_fused_band_kernels": k1_profiled}, res

@@ -18,6 +18,7 @@ from typing import FrozenSet, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 
+from repro_torch import obs as OBS
 from repro_torch.resilience.retry import ResilienceStats
 
 Pair = Tuple[int, int]
@@ -113,9 +114,10 @@ def pack_pair_set(pairs: Set[Pair]) -> np.ndarray:
 
 def packed_to_frozenset(packed: np.ndarray) -> FrozenSet[Pair]:
     """Packed array -> public frozenset of (lo, hi) tuples (the one place
-    Python pair objects are materialized)."""
-    lo, hi = unpack_pairs(packed)
-    return frozenset(zip(lo.tolist(), hi.tolist()))
+    Python pair objects are materialized), in a ``frozensets`` span."""
+    with OBS.span("frozensets", pairs=len(packed)):
+        lo, hi = unpack_pairs(packed)
+        return frozenset(zip(lo.tolist(), hi.tolist()))
 
 
 class CollectedPairs(NamedTuple):

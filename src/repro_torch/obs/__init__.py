@@ -21,12 +21,13 @@ One observability substrate for the whole port:
                               ``metrics()`` (``pack_stats``/
                               ``unpack_stats`` round-trip them losslessly)
 
-Every module here is a leaf (stdlib + numpy at import time; ``torch`` only
-inside a profiled span), so ``repro_torch.api``, ``stream``, ``serve`` and
-``resilience`` import it without cycles; the schema's class lookups
-resolve lazily at unpack time.  Device spans (``shard_program``) are
-fenced with ``torch.cuda.synchronize`` by their call site, only while a
-tracer is active.
+Every module here is a leaf (stdlib + numpy; no ``torch``), so
+``repro_torch.api``, ``stream``, ``serve`` and ``resilience`` import it
+without cycles; the schema's class lookups resolve lazily at unpack
+time.  Device spans (``shard_program``) are fenced with
+``torch.cuda.synchronize`` by their call site, only while a tracer is
+active.  While any tracer is active each CPython collection is a ``gc``
+span on the collecting thread's tracer (``trace.py``).
 
 Invariant 12: tracing never changes pair sets.
 """

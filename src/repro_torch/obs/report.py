@@ -100,9 +100,11 @@ class TraceReport:
         """Fraction of the first root span's duration covered by its
         DIRECT children — the DESIGN.md §12 accounting-completeness check
         (a healthy instrumented run keeps this >= 0.9, i.e. per-phase /
-        per-chunk spans sum to within ~10%% of the measured wall).
-        Returns 0.0 when there is no finished root span."""
-        roots = [s for s in self.spans if s.parent < 0 and s.dur]
+        per-chunk spans sum to within ~10%% of the measured wall).  A
+        collector pass (``gc``) that ran before the root opened is no
+        root.  Returns 0.0 when there is no finished root span."""
+        roots = [s for s in self.spans
+                 if s.parent < 0 and s.dur and s.name != "gc"]
         if not roots:
             return 0.0
         root = roots[0]

@@ -15,9 +15,16 @@ whole overhead story:
     acquisition to append the record.  Device sections (``device=True``
     attrs) are additionally fenced with ``torch.cuda.synchronize`` BY THE
     INSTRUMENTATION SITE (not here) so asynchronous kernel launches cannot
-    under-report them; with ``Tracer(torch_profiler=True)`` they are also
-    bracketed in ``torch.profiler.record_function`` so they line up inside
-    a ``torch.profiler`` device trace.
+    under-report them.
+
+While at least one tracer is active on any thread, a ``gc.callbacks``
+hook records each CPython collection as a ``gc`` span (attrs
+``generation``, ``collected``, ``uncollectable``) on the collecting
+thread's active tracer, under whatever span is open there; the first
+``activate`` installs it and the last one out removes it, so an untraced
+process runs no callback at all.  A collection can start inside any
+allocation, the tracer's own locked sections included, so the tracer's
+lock is re-entrant.
 
 Invariant 12 (DESIGN.md): tracing never changes pair sets or retrace
 counts — spans only read clocks; ``cfg.trace`` is excluded from
@@ -31,6 +38,7 @@ reads back.
 """
 from __future__ import annotations
 
+import gc
 import json
 import threading
 import time
@@ -60,12 +68,49 @@ class activate:
 
     def __enter__(self) -> "Tracer":
         self._prev = getattr(_active, "tracer", None)
+        _hook_gc(+1)
         _active.tracer = self.tracer
         return self.tracer
 
     def __exit__(self, *exc) -> bool:
         _active.tracer = self._prev
+        _hook_gc(-1)
         return False
+
+
+_gc_lock = threading.RLock()
+_gc_users = 0
+
+
+def _hook_gc(delta: int) -> None:
+    """Count active tracers; ``_on_gc`` is in ``gc.callbacks`` exactly
+    while the count is above zero."""
+    global _gc_users
+    with _gc_lock:
+        _gc_users += delta
+        if delta > 0 and _gc_users == 1:
+            gc.callbacks.append(_on_gc)
+        elif delta < 0 and _gc_users == 0:
+            gc.callbacks.remove(_on_gc)
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """One ``gc`` span per collection on the collecting thread's active
+    tracer (none: nothing).  Collections never nest, so a thread has at
+    most one open; records spans only, never metrics."""
+    if phase == "start":
+        t = getattr(_active, "tracer", None)
+        if t is not None:
+            sp = _Span(t, "gc", {"generation": info["generation"]})
+            sp.__enter__()
+            _active.gc_span = sp
+        return
+    sp = getattr(_active, "gc_span", None)
+    if sp is not None:
+        _active.gc_span = None
+        sp._rec.attrs["collected"] = info["collected"]
+        sp._rec.attrs["uncollectable"] = info["uncollectable"]
+        sp.__exit__(None, None, None)
 
 
 class _NoopSpan:
@@ -95,8 +140,7 @@ def span(name: str, /, **attrs):
     disabled path is one thread-local lookup.  ``attrs`` become the span's
     Chrome-trace ``args`` (the span name is positional-only, so ``name``
     is a legal attr key); the reserved attr ``device=True`` marks a
-    device section (call sites block on the result inside the span, and
-    ``Tracer(torch_profiler=True)`` brackets it in a profiler range)."""
+    device section (call sites block on the result inside the span)."""
     t = getattr(_active, "tracer", None)
     if t is None:
         return NOOP_SPAN
@@ -132,7 +176,7 @@ class SpanRecord:
 
 class _Span:
     """The enabled-path span context manager (see ``Tracer.span``)."""
-    __slots__ = ("_tracer", "_rec", "name", "attrs", "_ann")
+    __slots__ = ("_tracer", "_rec", "name", "attrs")
     enabled = True
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
@@ -140,7 +184,6 @@ class _Span:
         self.name = name
         self.attrs = attrs
         self._rec: Optional[SpanRecord] = None
-        self._ann = None
 
     def __enter__(self) -> "_Span":
         tr = self._tracer
@@ -152,10 +195,6 @@ class _Span:
         with tr._lock:
             rec.index = len(tr._records)
             tr._records.append(rec)
-        if tr.torch_profiler and self.attrs.get("device"):
-            import torch
-            self._ann = torch.profiler.record_function(self.name)
-            self._ann.__enter__()
         stack.append(rec)
         self._rec = rec
         rec.t0 = time.perf_counter() - tr._epoch   # last: excludes setup
@@ -168,9 +207,6 @@ class _Span:
         st = self._tracer._thread_state()
         if st["stack"] and st["stack"][-1] is rec:
             st["stack"].pop()
-        if self._ann is not None:
-            self._ann.__exit__(*exc)
-            self._ann = None
         return False
 
     def set(self, **attrs) -> None:
@@ -188,16 +224,12 @@ class Tracer:
     ``cfg.trace`` is set), install with ``activate``, and read the result
     as ``spans()`` / ``metrics`` / ``export_chrome``.  Span nesting is
     tracked per-thread (each thread gets its own parent stack and a small
-    stable ``tid``), records land in ONE ordered list under a lock.
+    stable ``tid``), records land in ONE ordered list under a re-entrant
+    lock (a ``gc`` span can open inside any locked section)."""
 
-    ``torch_profiler=True`` additionally brackets ``device=True`` spans in
-    ``torch.profiler.record_function`` so they appear inside a
-    ``torch.profiler`` trace captured around the same run."""
-
-    def __init__(self, torch_profiler: bool = False):
-        self.torch_profiler = torch_profiler
+    def __init__(self):
         self.metrics = MetricsRegistry()
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._records: list = []
         self._tls = threading.local()
         self._tids: dict = {}

@@ -50,6 +50,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import balance as B
+from repro_torch import obs as OBS
 from repro_torch.api import results as RES
 from repro_torch.api.runners import VmapRunner
 from repro_torch.core import entities as E
@@ -155,7 +156,12 @@ class DeltaMatcher:
     ⌈R / max_bucket⌉ group, each padded to (next bucket ≥ group size) ×
     (cap_floor · 2^k ≥ L) — so a steady workload cycles through few
     shapes.  ``device``: where every delta call runs (None = the CUDA card,
-    raising without one)."""
+    raising without one).
+
+    Traced, ``insert``/``delete`` open an ``index`` span over the regions'
+    gather (``rows``: the regions' rows), then ``delta_pairs`` and
+    ``set_algebra``, then a second ``index`` span over the index's own
+    mutation (``rows``: the rows inserted or deleted)."""
 
     def __init__(self, cfg, index, *,
                  shard_buckets: Sequence[int] = (2, 4, 8),
@@ -273,40 +279,45 @@ class DeltaMatcher:
 
     def _apply(self, blocked, matched, regions, region_eids, region_ivs,
                batch_n, *, degraded: bool = False, comp_ranges=()):
-        if degraded:
-            # brownout: blocked stays exact (host SN arithmetic); matched
-            # is the conservative carry-forward gate — a pair stays
-            # matched while it stays blocked (matcher decisions are
-            # per-pair deterministic over immutable payloads, so every
-            # carried match is one an exact re-resolve would confirm);
-            # NEW matches are deferred to ``refresh`` over comp_ranges
-            after_b = self._host_pairs(regions)
-            after_m, calls, shapes = None, 0, ()
-        else:
-            after_b, after_m, calls, shapes = self._device_pairs(regions)
-        if region_eids:
-            eids = np.concatenate(region_eids)
-            ivs = np.concatenate(region_ivs)
-            order = np.argsort(eids, kind="stable")
-            eid_sorted, iv_of = eids[order], ivs[order]
-        else:
-            eid_sorted = np.empty((0,), np.int64)
-            iv_of = np.empty((0,), np.int64)
-        before_b = _restrict(blocked, eid_sorted, iv_of)
-        before_m = _restrict(matched, eid_sorted, iv_of)
-        if degraded:
-            after_m = RES.intersect_sorted(before_m, after_b)
-        new_blocked = RES.union_sorted(_diff(blocked, before_b), after_b)
-        new_matched = RES.union_sorted(_diff(matched, before_m), after_m)
-        stats = DeltaStats(
-            batch=batch_n, regions=len(region_eids),
-            region_rows=int(eid_sorted.shape[0]),
-            device_calls=calls, shapes=shapes,
-            added_blocked=_diff(after_b, before_b),
-            removed_blocked=_diff(before_b, after_b),
-            added_matched=_diff(after_m, before_m),
-            removed_matched=_diff(before_m, after_m),
-            degraded=degraded, comp_ranges=tuple(comp_ranges))
+        """The regions' pairs (a ``delta_pairs`` span), then the edit of
+        the maintained sets (a ``set_algebra`` span)."""
+        with OBS.span("delta_pairs", degraded=degraded):
+            if degraded:
+                # brownout: blocked stays exact (host SN arithmetic);
+                # matched is the conservative carry-forward gate — a pair
+                # stays matched while it stays blocked (matcher decisions
+                # are per-pair deterministic over immutable payloads, so
+                # every carried match is one an exact re-resolve would
+                # confirm); NEW matches are deferred to ``refresh`` over
+                # comp_ranges
+                after_b = self._host_pairs(regions)
+                after_m, calls, shapes = None, 0, ()
+            else:
+                after_b, after_m, calls, shapes = self._device_pairs(regions)
+        with OBS.span("set_algebra"):
+            if region_eids:
+                eids = np.concatenate(region_eids)
+                ivs = np.concatenate(region_ivs)
+                order = np.argsort(eids, kind="stable")
+                eid_sorted, iv_of = eids[order], ivs[order]
+            else:
+                eid_sorted = np.empty((0,), np.int64)
+                iv_of = np.empty((0,), np.int64)
+            before_b = _restrict(blocked, eid_sorted, iv_of)
+            before_m = _restrict(matched, eid_sorted, iv_of)
+            if degraded:
+                after_m = RES.intersect_sorted(before_m, after_b)
+            new_blocked = RES.union_sorted(_diff(blocked, before_b), after_b)
+            new_matched = RES.union_sorted(_diff(matched, before_m), after_m)
+            stats = DeltaStats(
+                batch=batch_n, regions=len(region_eids),
+                region_rows=int(eid_sorted.shape[0]),
+                device_calls=calls, shapes=shapes,
+                added_blocked=_diff(after_b, before_b),
+                removed_blocked=_diff(before_b, after_b),
+                added_matched=_diff(after_m, before_m),
+                removed_matched=_diff(before_m, after_m),
+                degraded=degraded, comp_ranges=tuple(comp_ranges))
         return new_blocked, new_matched, stats
 
     def insert(self, batch, blocked: np.ndarray, matched: np.ndarray,
@@ -322,44 +333,50 @@ class DeltaMatcher:
         stay blocked stay matched; new matches are DEFERRED).  The caller
         must record ``stats.comp_ranges`` and later ``refresh`` them to
         restore matched exactness."""
-        srun = E.sort_chunk(batch)
-        q = E.composite_order_key(srun)
-        if q.shape[0] == 0:
-            return blocked, matched, DeltaStats(0, 0, 0, 0, (), _EMPTY,
-                                                _EMPTY, _EMPTY, _EMPTY)
-        self.index.assert_new_eids(srun["eid"])
-        old_all = self.index.live_comps
-        pos = np.searchsorted(old_all, q)
-        new_ranks = pos + np.arange(q.shape[0], dtype=np.int64)
-        n_new = old_all.shape[0] + q.shape[0]
-        new_all = np.insert(old_all, pos, q)
-        regions: List[dict] = []
-        region_eids: List[np.ndarray] = []
-        region_ivs: List[np.ndarray] = []
-        comp_ranges: List[Tuple[int, int]] = []
-        w = self.cfg.window
-        for iv, (lo, hi) in enumerate(merge_intervals(new_ranks, w, n_new)):
-            c_lo, c_hi = int(new_all[lo]), int(new_all[hi - 1])
-            comp_ranges.append((c_lo, c_hi))
-            old_part = self.index.take_comp_range(c_lo, c_hi)
-            blo = int(np.searchsorted(q, c_lo, side="left"))
-            bhi = int(np.searchsorted(q, c_hi, side="right"))
-            new_part = E.host_take(srun, np.arange(blo, bhi))
-            if old_part is None:
-                region = new_part
-            else:
-                both = E.host_concat([old_part, new_part])
-                region = E.host_take(
-                    both, np.argsort(E.composite_order_key(both),
-                                     kind="stable"))
-            regions.append(region)
-            region_eids.append(np.asarray(region["eid"], np.int64))
-            region_ivs.append(np.full(int(region["eid"].shape[0]), iv,
-                                      np.int64))
+        with OBS.span("index") as sp:
+            srun = E.sort_chunk(batch)
+            q = E.composite_order_key(srun)
+            if q.shape[0] == 0:
+                return blocked, matched, DeltaStats(0, 0, 0, 0, (), _EMPTY,
+                                                    _EMPTY, _EMPTY, _EMPTY)
+            self.index.assert_new_eids(srun["eid"])
+            old_all = self.index.live_comps
+            pos = np.searchsorted(old_all, q)
+            new_ranks = pos + np.arange(q.shape[0], dtype=np.int64)
+            n_new = old_all.shape[0] + q.shape[0]
+            new_all = np.insert(old_all, pos, q)
+            regions: List[dict] = []
+            region_eids: List[np.ndarray] = []
+            region_ivs: List[np.ndarray] = []
+            comp_ranges: List[Tuple[int, int]] = []
+            w = self.cfg.window
+            for iv, (lo, hi) in enumerate(
+                    merge_intervals(new_ranks, w, n_new)):
+                c_lo, c_hi = int(new_all[lo]), int(new_all[hi - 1])
+                comp_ranges.append((c_lo, c_hi))
+                old_part = self.index.take_comp_range(c_lo, c_hi)
+                blo = int(np.searchsorted(q, c_lo, side="left"))
+                bhi = int(np.searchsorted(q, c_hi, side="right"))
+                new_part = E.host_take(srun, np.arange(blo, bhi))
+                if old_part is None:
+                    region = new_part
+                else:
+                    both = E.host_concat([old_part, new_part])
+                    region = E.host_take(
+                        both, np.argsort(E.composite_order_key(both),
+                                         kind="stable"))
+                regions.append(region)
+                region_eids.append(np.asarray(region["eid"], np.int64))
+                region_ivs.append(np.full(int(region["eid"].shape[0]), iv,
+                                          np.int64))
+            if sp.enabled:
+                sp.set(regions=len(regions),
+                       rows=sum(int(e.shape[0]) for e in region_eids))
         out = self._apply(blocked, matched, regions, region_eids,
                           region_ivs, int(q.shape[0]), degraded=degraded,
                           comp_ranges=comp_ranges)
-        self.index.insert(srun)
+        with OBS.span("index", regions=len(regions), rows=int(q.shape[0])):
+            self.index.insert(srun)
         return out
 
     def delete(self, eids, blocked: np.ndarray, matched: np.ndarray,
@@ -372,32 +389,39 @@ class DeltaMatcher:
         if eids.shape[0] == 0:
             return blocked, matched, DeltaStats(0, 0, 0, 0, (), _EMPTY,
                                                 _EMPTY, _EMPTY, _EMPTY)
-        comps = np.sort(self.index.comps_of(eids))
-        all_ = self.index.live_comps
-        ranks = np.searchsorted(all_, comps)
-        regions: List[dict] = []
-        region_eids: List[np.ndarray] = []
-        region_ivs: List[np.ndarray] = []
-        comp_ranges: List[Tuple[int, int]] = []
-        w = self.cfg.window
-        for iv, (lo, hi) in enumerate(
-                merge_intervals(ranks, w, int(all_.shape[0]))):
-            # the region is taken in the PRE-delete order (deleted rows
-            # included — they anchor the before-restriction); the device
-            # call sees only the survivors, i.e. the post-delete order
-            c_lo, c_hi = int(all_[lo]), int(all_[hi - 1])
-            comp_ranges.append((c_lo, c_hi))
-            region = self.index.take_comp_range(c_lo, c_hi)
-            r_eids = np.asarray(region["eid"], np.int64)
-            region_eids.append(r_eids)
-            region_ivs.append(np.full(r_eids.shape[0], iv, np.int64))
-            keep = np.flatnonzero(~RES.isin_sorted(r_eids, eids))
-            if keep.shape[0]:
-                regions.append(E.host_take(region, keep))
+        with OBS.span("index") as sp:
+            comps = np.sort(self.index.comps_of(eids))
+            all_ = self.index.live_comps
+            ranks = np.searchsorted(all_, comps)
+            regions: List[dict] = []
+            region_eids: List[np.ndarray] = []
+            region_ivs: List[np.ndarray] = []
+            comp_ranges: List[Tuple[int, int]] = []
+            w = self.cfg.window
+            for iv, (lo, hi) in enumerate(
+                    merge_intervals(ranks, w, int(all_.shape[0]))):
+                # the region is taken in the PRE-delete order (deleted
+                # rows included — they anchor the before-restriction); the
+                # device call sees only the survivors, i.e. the
+                # post-delete order
+                c_lo, c_hi = int(all_[lo]), int(all_[hi - 1])
+                comp_ranges.append((c_lo, c_hi))
+                region = self.index.take_comp_range(c_lo, c_hi)
+                r_eids = np.asarray(region["eid"], np.int64)
+                region_eids.append(r_eids)
+                region_ivs.append(np.full(r_eids.shape[0], iv, np.int64))
+                keep = np.flatnonzero(~RES.isin_sorted(r_eids, eids))
+                if keep.shape[0]:
+                    regions.append(E.host_take(region, keep))
+            if sp.enabled:
+                sp.set(regions=len(region_eids),
+                       rows=sum(int(e.shape[0]) for e in region_eids))
         out = self._apply(blocked, matched, regions, region_eids,
                           region_ivs, int(eids.shape[0]), degraded=degraded,
                           comp_ranges=comp_ranges)
-        self.index.delete(eids)
+        with OBS.span("index", regions=len(region_eids),
+                      rows=int(eids.shape[0])):
+            self.index.delete(eids)
         return out
 
     def refresh(self, comp_ranges: Sequence[Tuple[int, int]],

@@ -41,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from repro_torch import balance as B
+from repro_torch import obs as OBS
 from repro_torch.api.results import sort_unique
 from repro_torch.core import entities as E
 from repro_torch.stream.external_sort import merged_blocks, rechunk
@@ -283,23 +284,26 @@ class SortedIndex:
         of the live rows, re-blocked to ``segment_rows``), dropping
         tombstoned rows and their spool bytes.  The live entity set, the
         flat rank index, and the merged profile are all unchanged —
-        compaction is invisible to readers."""
-        self._gen += 1
-        fresh = ChunkStore(self.spool_dir, prefix=f"g{self._gen:03d}-")
-        for chunk in rechunk(self.scan_live(self.merge_block),
-                             self.segment_rows):
-            fresh.append(chunk)
-        old = self._runs
-        self._runs = fresh
-        self._comps = [E.composite_order_key(fresh.load_index(i))
-                       for i in range(len(fresh))]
-        self._live = [np.ones(c.shape[0], bool) for c in self._comps]
-        self._loc = {}
-        for run_id in range(len(fresh)):
-            for row, e in enumerate(
-                    np.asarray(fresh.load_index(run_id)["eid"],
-                               np.int64).tolist()):
-                self._loc[int(e)] = (run_id, row)
-        old.dispose()
-        self.tombstones = 0
-        self.compactions += 1
+        compaction is invisible to readers.  Traced, a ``compact`` span
+        (``rows``: the live rows rewritten; ``runs``: the runs after)."""
+        with OBS.span("compact", rows=self.n_live) as sp:
+            self._gen += 1
+            fresh = ChunkStore(self.spool_dir, prefix=f"g{self._gen:03d}-")
+            for chunk in rechunk(self.scan_live(self.merge_block),
+                                 self.segment_rows):
+                fresh.append(chunk)
+            old = self._runs
+            self._runs = fresh
+            self._comps = [E.composite_order_key(fresh.load_index(i))
+                           for i in range(len(fresh))]
+            self._live = [np.ones(c.shape[0], bool) for c in self._comps]
+            self._loc = {}
+            for run_id in range(len(fresh)):
+                for row, e in enumerate(
+                        np.asarray(fresh.load_index(run_id)["eid"],
+                                   np.int64).tolist()):
+                    self._loc[int(e)] = (run_id, row)
+            old.dispose()
+            self.tombstones = 0
+            self.compactions += 1
+            sp.set(runs=len(fresh))

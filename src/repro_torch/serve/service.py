@@ -40,6 +40,7 @@ exact batch indices for the overload property tests.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -570,72 +571,76 @@ class ResolutionService:
         if self._tracer is not None:
             self._tracer.metrics.gauge("brownout").set(
                 1.0 if degraded else 0.0)
-        with self._lock:
-            cache = PC.executable_cache()
-            before = cache.stats.snapshot()
-            if kind == "insert":
-                h = group[0].data if len(group) == 1 else \
-                    E.host_concat([r.data for r in group])
-                dev = E.make_entities(h["key"], h["eid"],
-                                      payload=h["payload"],
-                                      valid=h["valid"], device=self.device)
-                nb, nm, dstats = self._delta.insert(dev, self._blocked,
-                                                    self._matched,
-                                                    degraded=degraded)
-            else:
-                eids = np.concatenate([r.data for r in group])
-                nb, nm, dstats = self._delta.delete(eids, self._blocked,
-                                                    self._matched,
-                                                    degraded=degraded)
-            self._blocked, self._matched = nb, nm
-            if dstats.degraded:
-                self._degraded_batches += 1
-                self._record_dirty(dstats.comp_ranges)
-                if self._tracer is not None:
-                    self._tracer.metrics.counter("degraded_batches").inc()
-            dh, dm, dt = cache.stats.delta(before)
-            self._hits += dh
-            self._misses += dm
-            self._traces += dt
-            self._steady += int(dstats.device_calls > 0
-                                and dh > 0 and dm == 0 and dt == 0)
-            self._batches += 1
-            self._requests += len(group)
-            self._fill += min(1.0, sum(r.n for r in group)
-                              / max(self.max_batch, 1))
-            self._device_calls += dstats.device_calls
-            self._shapes.update(dstats.shapes)
-            self.index.maybe_compact()
+        # ``publish``: the served sets, the pair ids and the frozensets,
+        # from inside the lock to the result built outside it
+        with contextlib.ExitStack() as publish:
+            with self._lock:
+                cache = PC.executable_cache()
+                before = cache.stats.snapshot()
+                if kind == "insert":
+                    h = group[0].data if len(group) == 1 else \
+                        E.host_concat([r.data for r in group])
+                    dev = E.make_entities(h["key"], h["eid"],
+                                          payload=h["payload"],
+                                          valid=h["valid"], device=self.device)
+                    nb, nm, dstats = self._delta.insert(dev, self._blocked,
+                                                        self._matched,
+                                                        degraded=degraded)
+                else:
+                    eids = np.concatenate([r.data for r in group])
+                    nb, nm, dstats = self._delta.delete(eids, self._blocked,
+                                                        self._matched,
+                                                        degraded=degraded)
+                self._blocked, self._matched = nb, nm
+                if dstats.degraded:
+                    self._degraded_batches += 1
+                    self._record_dirty(dstats.comp_ranges)
+                    if self._tracer is not None:
+                        self._tracer.metrics.counter("degraded_batches").inc()
+                dh, dm, dt = cache.stats.delta(before)
+                self._hits += dh
+                self._misses += dm
+                self._traces += dt
+                self._steady += int(dstats.device_calls > 0
+                                    and dh > 0 and dm == 0 and dt == 0)
+                self._batches += 1
+                self._requests += len(group)
+                self._fill += min(1.0, sum(r.n for r in group)
+                                  / max(self.max_batch, 1))
+                self._device_calls += dstats.device_calls
+                self._shapes.update(dstats.shapes)
+                self.index.maybe_compact()
 
-            old_sb, old_sm = self._served_b, self._served_m
-            if self._boundary_complete:
-                self._served_b, self._served_m = nb, nm
-            else:
-                straddle = srp_straddle_packed(self.index, self.cfg)
-                self._served_b = RES.setdiff_sorted(nb, straddle)
-                self._served_m = RES.setdiff_sorted(nm, straddle)
-            new_p = RES.setdiff_sorted(self._served_b, old_sb)
-            gone_p = RES.setdiff_sorted(old_sb, self._served_b)
-            new_m = RES.setdiff_sorted(self._served_m, old_sm)
-            gone_m = RES.setdiff_sorted(old_sm, self._served_m)
-            ids = {}
-            for packed in new_p.tolist():
-                pid = self._pair_ids.get(packed)
-                if pid is None:
-                    pid = len(self._pair_ids)
-                    self._pair_ids[packed] = pid
-                ids[(packed >> 32, packed & 0xFFFFFFFF)] = pid
-            now = time.perf_counter()
-            for r in group:
-                self._latency.observe(now - r.t0)
-            stats = self._stats_locked()
-        return IncrementalResult(
-            new_pairs=RES.packed_to_frozenset(new_p),
-            retired_pairs=RES.packed_to_frozenset(gone_p),
-            new_matches=RES.packed_to_frozenset(new_m),
-            retired_matches=RES.packed_to_frozenset(gone_m),
-            pair_ids=ids, batched=len(group), stats=stats,
-            degraded=dstats.degraded)
+                publish.enter_context(OBS.span("publish"))
+                old_sb, old_sm = self._served_b, self._served_m
+                if self._boundary_complete:
+                    self._served_b, self._served_m = nb, nm
+                else:
+                    straddle = srp_straddle_packed(self.index, self.cfg)
+                    self._served_b = RES.setdiff_sorted(nb, straddle)
+                    self._served_m = RES.setdiff_sorted(nm, straddle)
+                new_p = RES.setdiff_sorted(self._served_b, old_sb)
+                gone_p = RES.setdiff_sorted(old_sb, self._served_b)
+                new_m = RES.setdiff_sorted(self._served_m, old_sm)
+                gone_m = RES.setdiff_sorted(old_sm, self._served_m)
+                ids = {}
+                for packed in new_p.tolist():
+                    pid = self._pair_ids.get(packed)
+                    if pid is None:
+                        pid = len(self._pair_ids)
+                        self._pair_ids[packed] = pid
+                    ids[(packed >> 32, packed & 0xFFFFFFFF)] = pid
+                now = time.perf_counter()
+                for r in group:
+                    self._latency.observe(now - r.t0)
+                stats = self._stats_locked()
+            return IncrementalResult(
+                new_pairs=RES.packed_to_frozenset(new_p),
+                retired_pairs=RES.packed_to_frozenset(gone_p),
+                new_matches=RES.packed_to_frozenset(new_m),
+                retired_matches=RES.packed_to_frozenset(gone_m),
+                pair_ids=ids, batched=len(group), stats=stats,
+                degraded=dstats.degraded)
 
     # -- brownout repair -----------------------------------------------------
 

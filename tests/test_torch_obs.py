@@ -15,8 +15,14 @@ pair set).
     retraces)
   * the port's Chrome export read by the reference's ``tools/
     trace_report.py``
+  * the port's own spans (``PORT_ONLY_SPANS``, dropped from every parity
+    check and held disjoint from the reference's): the public frozensets,
+    the serve batch's steps and the collector's passes, whose
+    ``gc.callbacks`` hook is installed only while a tracer is active and
+    cannot deadlock the tracer
 """
 import collections
+import gc
 import json
 import threading
 
@@ -61,12 +67,26 @@ def _chunks(ents, sz=150):
             for s in range(0, n, sz)]
 
 
+# spans only the port opens: its host work (the public frozensets, the
+# serve batch's steps) and CPython's collector passes; a parity check
+# drops them, re-parenting their children to the nearest kept ancestor
+PORT_ONLY_SPANS = frozenset({"frozensets", "gc", "index", "delta_pairs",
+                             "set_algebra", "compact", "publish"})
+
+
 def _edges(spans):
-    """Multiset of (span name, parent span name) — the shape of a trace."""
+    """Multiset of (span name, parent span name) — the shape of a trace —
+    without ``PORT_ONLY_SPANS``."""
     by_index = {s.index: s for s in spans}
-    return collections.Counter(
-        (s.name, by_index[s.parent].name if s.parent >= 0 else None)
-        for s in spans)
+
+    def kept_parent(s):
+        p = s.parent
+        while p >= 0 and by_index[p].name in PORT_ONLY_SPANS:
+            p = by_index[p].parent
+        return by_index[p].name if p >= 0 else None
+
+    return collections.Counter((s.name, kept_parent(s)) for s in spans
+                               if s.name not in PORT_ONLY_SPANS)
 
 
 def _same_trace(ref, port):
@@ -85,7 +105,8 @@ def test_span_nesting_and_attrs(pkg):
                 c.set(b=2)
             with pkg.span("child"):
                 pass
-    root, c1, c2 = t.spans()
+    # a collector pass under the tracer is a ``gc`` span of the port's
+    root, c1, c2 = [s for s in t.spans() if s.name != "gc"]
     assert [s.name for s in (root, c1, c2)] == ["root", "child", "child"]
     assert (root.parent, root.depth) == (-1, 0)
     assert (c1.parent, c1.depth, c2.parent) == (root.index, 1, root.index)
@@ -124,7 +145,7 @@ def test_spans_are_thread_safe(pkg):
     for th in threads:
         th.join(30)
         assert not th.is_alive()
-    spans = t.spans()
+    spans = [s for s in t.spans() if s.name != "gc"]
     by_index = {s.index: s for s in spans}
     assert len(spans) == 16
     for s in spans:
@@ -373,15 +394,175 @@ def test_chrome_export_is_read_by_the_reference_tool(ents, tmp_path):
         pass
     t.export_chrome(str(tmp_path / "t.json"), extra={"note": 1})
     d = digest(load_trace(str(tmp_path / "t.json")), top=1)
-    assert d["spans"] == 1
+    assert d["spans"] == len(t.spans()) >= 1
 
 
-def test_torch_profiler_brackets_device_spans(ents):
-    from torch.profiler import ProfilerActivity, profile
-    t = TO.Tracer(torch_profiler=True)
-    cfg = TA.ERConfig(**_kw())
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with TO.activate(t):
-            TA.resolve(port_ents(ents), cfg, device="cpu")
-    assert "shard_program" in {e.key for e in prof.key_averages()}
-    assert "shard_program" in {s.name for s in t.spans()}
+# -- the port's own spans ------------------------------------------------------
+
+def _below(spans, ancestor):
+    """The spans under ``ancestor`` (a SpanRecord), at any depth."""
+    by_index = {s.index: s for s in spans}
+
+    def under(s):
+        p = s.parent
+        while p >= 0:
+            if p == ancestor.index:
+                return True
+            p = by_index[p].parent
+        return False
+
+    return [s for s in spans if under(s)]
+
+
+def _obs_callbacks():
+    return [cb for cb in gc.callbacks
+            if getattr(cb, "__module__", "").startswith("repro_torch.obs")]
+
+
+def test_port_only_spans_are_not_reference_spans(ents):
+    """No reference span carries a name the parity checks drop, and the
+    port's traces of the same runs do carry ``frozensets`` spans."""
+    passes = lambda pkg: (pkg.SortKeySpec(name="key"),
+                          pkg.SortKeySpec(name="text1", source="text",
+                                          kind="prefix", offset=1, width=2))
+    h = RE.to_host(ents)
+    mk = lambda x: RE.make_entities(x["key"], x["eid"],
+                                    payload=x["payload"], valid=x["valid"])
+    lhs, rhs = mk(RE.host_take(h, slice(0, 300))), \
+        mk(RE.host_take(h, slice(300, N)))
+    kw = _kw(trace=True)
+    ref = [RA.resolve(ents, RA.ERConfig(**kw)),
+           RA.resolve(ents, RA.ERConfig(**kw, passes=passes(RA))),
+           RA.link(lhs, rhs, RA.ERConfig(**kw)),
+           RS.resolve_stream(iter(_chunks(ents)), RA.ERConfig(**kw),
+                             chunk_size=150)]
+    port = [TA.resolve(port_ents(ents), TA.ERConfig(**kw), device="cpu"),
+            TA.resolve(port_ents(ents), TA.ERConfig(**kw, passes=passes(TA)),
+                       device="cpu"),
+            TA.link(port_ents(lhs), port_ents(rhs), TA.ERConfig(**kw),
+                    device="cpu"),
+            TS.resolve_stream(iter(_chunks(ents)), TA.ERConfig(**kw),
+                              chunk_size=150, device="cpu")]
+    ref_names = {s.name for r in ref for s in r.trace.spans}
+    assert {"resolve", "attempt", "chunk"} <= ref_names
+    assert not PORT_ONLY_SPANS & ref_names
+    for r in port:
+        assert "frozensets" in {s.name for s in r.trace.spans}
+
+
+def test_traced_resolve_spans_its_frozensets_under_attempt(ents):
+    res = TA.resolve(port_ents(ents), TA.ERConfig(**_kw(trace=True)),
+                     device="cpu")
+    spans = res.trace.spans
+    attempt, = [s for s in spans if s.name == "attempt"]
+    sets = [s for s in spans if s.name == "frozensets"]
+    assert sets and all(s in _below(spans, attempt) for s in sets)
+    assert sorted(s.attrs["pairs"] for s in sets) == \
+        sorted((len(res.pairs), len(res.matches)))
+
+
+def test_traced_service_spans_each_batch(ents):
+    """An insert that compacts and a delete that compacts, after the
+    bootstrap: each batch holds the index, delta, set-algebra, compaction
+    and publish steps, and the result's frozensets under ``publish``."""
+    h = RE.to_host(ents)
+    svc = TA.serve(TA.ERConfig(**_kw(variant="srp", trace=True)),
+                   initial=RE.host_take(h, slice(0, 400)), start=False,
+                   device="cpu", max_runs=1, max_tombstone_frac=0.0)
+    svc.resolve_incremental(RE.host_take(h, slice(400, N)))
+    svc.delete(h["eid"][10:20])
+    assert svc.stats().compactions == 2
+    spans = svc.trace_report().spans
+    batches = [s for s in spans if s.name == "batch"]
+    assert len(batches) == 3
+    steps = {"index", "delta_pairs", "set_algebra", "compact", "publish"}
+    for k, b in enumerate(batches):
+        below = _below(spans, b)
+        names = collections.Counter(s.name for s in below)
+        assert set(names) >= steps - ({"compact"} if k == 0 else set())
+        assert names["index"] == 2 and names["compact"] == (k > 0)
+        publish, = [s for s in below if s.name == "publish"]
+        assert len([s for s in _below(spans, publish)
+                    if s.name == "frozensets"]) == 4
+        assert all(s.dur is not None for s in below)
+    compact = [s for s in spans if s.name == "compact"]
+    assert [s.attrs["runs"] for s in compact] == [1, 1]
+    assert [s.attrs["rows"] for s in compact] == [N, N - 10]
+    svc.close()
+
+
+def test_collector_passes_are_spans_under_the_open_span():
+    t = TO.Tracer()
+    was = gc.isenabled()
+    gc.disable()            # only the passes asked for below
+    try:
+        with TO.activate(t), TO.span("open"):
+            for generation in (0, 1, 2):
+                gc.collect(generation)
+    finally:
+        if was:
+            gc.enable()
+    root, *passes = t.spans()
+    assert root.name == "open"
+    assert [s.name for s in passes] == ["gc"] * 3
+    assert [s.attrs["generation"] for s in passes] == [0, 1, 2]
+    for s in passes:
+        assert s.parent == root.index and s.depth == 1 and s.dur >= 0
+        assert set(s.attrs) == {"generation", "collected", "uncollectable"}
+        assert root.t0 <= s.t0 and s.t0 + s.dur <= root.t0 + root.dur
+    assert not t.metrics.to_dict()          # spans only, no metric
+
+
+def test_no_gc_callback_without_an_active_tracer(ents):
+    assert not _obs_callbacks()
+    with TO.activate(TO.Tracer()):
+        assert len(_obs_callbacks()) == 1
+        with TO.activate(TO.Tracer()):
+            assert len(_obs_callbacks()) == 1
+        seen = []
+        th = threading.Thread(target=lambda: seen.append(
+            len(_obs_callbacks())))
+        th.start()
+        th.join(30)
+        assert seen == [1]
+    assert not _obs_callbacks()
+    res = TA.resolve(port_ents(ents), TA.ERConfig(**_kw(trace=True)),
+                     device="cpu")
+    assert res.trace is not None and not _obs_callbacks()
+    svc = TA.serve(TA.ERConfig(**_kw(trace=True)),
+                   initial=RE.to_host(ents), device="cpu")
+    svc.delete(RE.to_host(ents)["eid"][:5])
+    svc.close()
+    assert svc.trace_report().spans and not _obs_callbacks()
+    TA.resolve(port_ents(ents), TA.ERConfig(**_kw()), device="cpu")
+    assert not _obs_callbacks()
+
+
+def test_collector_cannot_deadlock_the_tracer(ents, tmp_path):
+    """A collection after every allocation lands inside the tracer's own
+    locked sections too; a traced resolve and the export still finish."""
+    done = []
+
+    def work():
+        res = TA.resolve(port_ents(ents), TA.ERConfig(**_kw(trace=True)),
+                         device="cpu")
+        res.trace.export_chrome(str(tmp_path / "resolve.json"))
+        t = TO.Tracer()
+        with TO.activate(t), TO.span("x"):
+            for _ in range(1000):
+                t.spans()
+                with TO.span("y"):
+                    pass
+            t.export_chrome(str(tmp_path / "t.json"))
+        done.append(len(res.trace.spans) > 0 and len(t.spans()) > 0)
+
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        th = threading.Thread(target=work, daemon=True)
+        th.start()
+        th.join(120)
+        alive = th.is_alive()
+    finally:
+        gc.set_threshold(*old)
+    assert not alive and done == [True]
