@@ -27,8 +27,10 @@ That reduces the edit to per-interval set algebra:
              ``ShardPlan``, exactly the stream's chunk plans), on bucketed
              shapes;
   before_i   the restriction of the maintained sets to pairs with BOTH
-             endpoints in interval i — pure host array work;
-  updated    (maintained \\ ∪before_i) ∪ ∪after_i.
+             endpoints in interval i — pure host array work, one slice
+             of the sorted set per region row;
+  updated    (maintained \\ ∪before_i) ∪ ∪after_i — ∪before_i dropped by
+             position and ∪after_i inserted at its sorted positions.
 
 The device call runs the SRP variant with ``emit="pairs"`` — intervals are
 mutually independent (each is a complete window over a contiguous rank
@@ -38,10 +40,11 @@ bit-identical to a from-scratch resolve over the live corpus.
 
 Every shard program runs on the matcher's ``device`` (the CUDA card by
 default), and so K1 runs on every device call.  The set algebra runs on
-the host over sorted distinct packed arrays, as sorted merges and
-``searchsorted`` lookups (``api.results``' sorted set operations) —
-numpy's hashing ``setdiff1d``/``union1d``/``intersect1d``/``isin`` give the
-same values in the same dtype.
+the host over sorted distinct packed arrays, as ``searchsorted`` lookups
+(``api.results``' sorted set operations) — numpy's hashing
+``setdiff1d``/``union1d``/``intersect1d``/``isin`` give the same values in
+the same dtype.  It costs the batch's regions plus two copies of each
+maintained set: no lookup or sort runs over every maintained pair.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from repro_torch.core import entities as E
 from repro_torch.device import resolve_device
 
 _EMPTY = np.empty((0,), RES.PACKED_DTYPE)
+_LOW32 = RES.PACKED_DTYPE(0xFFFFFFFF)
 
 
 class DeltaStats(NamedTuple):
@@ -102,24 +106,44 @@ def merge_intervals(ranks: np.ndarray, window: int, n: int
     return [(a, b) for a, b in out]
 
 
-def _restrict(packed: np.ndarray, eid_sorted: np.ndarray,
-              iv_of: np.ndarray) -> np.ndarray:
-    """Pairs of the maintained set with BOTH endpoints inside the SAME
-    interval (``eid_sorted``: sorted region eids; ``iv_of``: their interval
-    ids).  Same-interval matters: a pair spanning two different merged
-    intervals is unchanged by construction and must stay untouched."""
+def _region_pairs(packed: np.ndarray, eid_sorted: np.ndarray,
+                  iv_of: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Positions in ``packed`` of the maintained pairs with BOTH endpoints
+    inside the SAME interval (``eid_sorted``: sorted distinct region eids;
+    ``iv_of``: their interval ids), and the count of pairs looked at.
+    Same-interval matters: a pair spanning two different merged intervals
+    is unchanged by construction and must stay untouched.
+
+    Packed pairs sort by their lower eid first, so the pairs whose lower
+    eid is ``e`` are one slice of ``packed``, from ``e << 32`` to
+    ``(e << 32) | 0xFFFFFFFF`` (``(e + 1) << 32`` would wrap at eid
+    2^32 - 1): the lookups cost the region's rows, not the set's size."""
     if packed.shape[0] == 0 or eid_sorted.shape[0] == 0:
-        return _EMPTY
-    lo, hi = RES.unpack_pairs(packed)
-    il = np.searchsorted(eid_sorted, lo)
-    ih = np.searchsorted(eid_sorted, hi)
-    last = eid_sorted.shape[0] - 1
-    ilc = np.minimum(il, last)
-    ihc = np.minimum(ih, last)
-    mask = ((il <= last) & (eid_sorted[ilc] == lo)
-            & (ih <= last) & (eid_sorted[ihc] == hi)
-            & (iv_of[ilc] == iv_of[ihc]))
-    return packed[mask]
+        return np.empty((0,), np.int64), 0
+    e = eid_sorted.astype(RES.PACKED_DTYPE) << RES.PACKED_DTYPE(32)
+    starts = np.searchsorted(packed, e, side="left")
+    lens = np.searchsorted(packed, e | _LOW32, side="right") - starts
+    total = int(lens.sum())
+    pos = np.repeat(starts - (np.cumsum(lens) - lens), lens) \
+        + np.arange(total)
+    hi = (packed[pos] & _LOW32).astype(np.int64)
+    ih = np.minimum(np.searchsorted(eid_sorted, hi), eid_sorted.shape[0] - 1)
+    keep = (eid_sorted[ih] == hi) & (iv_of[ih] == np.repeat(iv_of, lens))
+    return pos[keep], total
+
+
+def _splice(packed: np.ndarray, drop: np.ndarray,
+            add: np.ndarray) -> np.ndarray:
+    """``packed`` without the values at positions ``drop``, with the sorted
+    distinct values of ``add`` inserted in order: two copies of the set,
+    whatever its size.  A value of ``add`` still in the set after the drop
+    is not inserted twice."""
+    kept = np.delete(packed, drop)
+    at = np.searchsorted(kept, add)
+    if kept.shape[0] and add.shape[0]:
+        new = kept[np.minimum(at, kept.shape[0] - 1)] != add
+        add, at = add[new], at[new]
+    return np.insert(kept, at, add)
 
 
 def _pad(ents: dict, cap: int) -> dict:
@@ -160,8 +184,9 @@ class DeltaMatcher:
 
     Traced, ``insert``/``delete`` open an ``index`` span over the regions'
     gather (``rows``: the regions' rows), then ``delta_pairs`` and
-    ``set_algebra``, then a second ``index`` span over the index's own
-    mutation (``rows``: the rows inserted or deleted)."""
+    ``set_algebra`` (``touched``: the maintained pairs its lookups read),
+    then a second ``index`` span over the index's own mutation (``rows``:
+    the rows inserted or deleted)."""
 
     def __init__(self, cfg, index, *,
                  shard_buckets: Sequence[int] = (2, 4, 8),
@@ -294,7 +319,7 @@ class DeltaMatcher:
                 after_m, calls, shapes = None, 0, ()
             else:
                 after_b, after_m, calls, shapes = self._device_pairs(regions)
-        with OBS.span("set_algebra"):
+        with OBS.span("set_algebra") as sp:
             if region_eids:
                 eids = np.concatenate(region_eids)
                 ivs = np.concatenate(region_ivs)
@@ -303,12 +328,15 @@ class DeltaMatcher:
             else:
                 eid_sorted = np.empty((0,), np.int64)
                 iv_of = np.empty((0,), np.int64)
-            before_b = _restrict(blocked, eid_sorted, iv_of)
-            before_m = _restrict(matched, eid_sorted, iv_of)
+            at_b, seen_b = _region_pairs(blocked, eid_sorted, iv_of)
+            at_m, seen_m = _region_pairs(matched, eid_sorted, iv_of)
+            before_b, before_m = blocked[at_b], matched[at_m]
             if degraded:
                 after_m = RES.intersect_sorted(before_m, after_b)
-            new_blocked = RES.union_sorted(_diff(blocked, before_b), after_b)
-            new_matched = RES.union_sorted(_diff(matched, before_m), after_m)
+            new_blocked = _splice(blocked, at_b, after_b)
+            new_matched = _splice(matched, at_m, after_m)
+            if sp.enabled:
+                sp.set(touched=seen_b + seen_m)
             stats = DeltaStats(
                 batch=batch_n, regions=len(region_eids),
                 region_rows=int(eid_sorted.shape[0]),

@@ -234,6 +234,11 @@ class ResolutionService:
         # (batches arrive forever — there is no single "run" to scope it)
         self._tracer = OBS.Tracer() if getattr(cfg, "trace", False) \
             else None
+        if self._tracer is not None:
+            # batches whose publish diffed the whole served sets (srp
+            # only); registered up front so that boundary-complete
+            # variants read 0
+            self._tracer.metrics.counter("publish_full_diffs")
         self._requests = 0
         self._batches = 0
         self._dispatched = 0
@@ -611,18 +616,32 @@ class ResolutionService:
                 self._shapes.update(dstats.shapes)
                 self.index.maybe_compact()
 
-                publish.enter_context(OBS.span("publish"))
+                publish.enter_context(OBS.span(
+                    "publish", full_diff=not self._boundary_complete))
                 old_sb, old_sm = self._served_b, self._served_m
                 if self._boundary_complete:
+                    # served = maintained before and after the batch, so
+                    # the batch's edit is the served edit: what it removed
+                    # left the set, and what it added joined it unless
+                    # it was there already
                     self._served_b, self._served_m = nb, nm
+                    new_p = RES.setdiff_sorted(dstats.added_blocked, old_sb)
+                    gone_p = dstats.removed_blocked
+                    new_m = RES.setdiff_sorted(dstats.added_matched, old_sm)
+                    gone_m = dstats.removed_matched
                 else:
+                    # the straddle filter moves pairs the batch never
+                    # touched: diff the whole served sets
                     straddle = srp_straddle_packed(self.index, self.cfg)
                     self._served_b = RES.setdiff_sorted(nb, straddle)
                     self._served_m = RES.setdiff_sorted(nm, straddle)
-                new_p = RES.setdiff_sorted(self._served_b, old_sb)
-                gone_p = RES.setdiff_sorted(old_sb, self._served_b)
-                new_m = RES.setdiff_sorted(self._served_m, old_sm)
-                gone_m = RES.setdiff_sorted(old_sm, self._served_m)
+                    new_p = RES.setdiff_sorted(self._served_b, old_sb)
+                    gone_p = RES.setdiff_sorted(old_sb, self._served_b)
+                    new_m = RES.setdiff_sorted(self._served_m, old_sm)
+                    gone_m = RES.setdiff_sorted(old_sm, self._served_m)
+                    if self._tracer is not None:
+                        self._tracer.metrics.counter(
+                            "publish_full_diffs").inc()
                 ids = {}
                 for packed in new_p.tolist():
                     pid = self._pair_ids.get(packed)

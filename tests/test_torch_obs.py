@@ -484,10 +484,48 @@ def test_traced_service_spans_each_batch(ents):
         publish, = [s for s in below if s.name == "publish"]
         assert len([s for s in _below(spans, publish)
                     if s.name == "frozensets"]) == 4
+        assert publish.attrs["full_diff"] is True
+        algebra, = [s for s in below if s.name == "set_algebra"]
+        assert (algebra.attrs["touched"] > 0) == (k > 0)
         assert all(s.dur is not None for s in below)
     compact = [s for s in spans if s.name == "compact"]
     assert [s.attrs["runs"] for s in compact] == [1, 1]
     assert [s.attrs["rows"] for s in compact] == [N, N - 10]
+    assert svc.trace_report().registry["publish_full_diffs"]["value"] == 3
+    svc.close()
+
+
+def test_traced_boundary_complete_service_publishes_the_edit(ents):
+    """Under repsn each batch's ``publish`` takes the batch's edit (no
+    whole-set diff: ``full_diff`` false, ``publish_full_diffs`` 0), still
+    builds the result's frozensets under it, and ``set_algebra`` counts
+    the maintained pairs its lookups read: none at the bootstrap, more
+    than the batch's edit after it."""
+    h = RE.to_host(ents)
+    svc = TA.serve(TA.ERConfig(**_kw(trace=True)),
+                   initial=RE.host_take(h, slice(0, 400)), start=False,
+                   device="cpu")
+    results = [svc.resolve_incremental(RE.host_take(h, slice(400, N))),
+               svc.delete(h["eid"][10:20])]
+    spans = svc.trace_report().spans
+    batches = [s for s in spans if s.name == "batch"]
+    assert len(batches) == 3
+    for k, b in enumerate(batches):
+        below = _below(spans, b)
+        publish, = [s for s in below if s.name == "publish"]
+        assert publish.attrs["full_diff"] is False
+        assert len([s for s in _below(spans, publish)
+                    if s.name == "frozensets"]) == 4
+        algebra, = [s for s in below if s.name == "set_algebra"]
+        touched = algebra.attrs["touched"]
+        assert isinstance(touched, int)
+        if k == 0:
+            assert touched == 0
+        else:
+            res = results[k - 1]
+            assert touched >= len(res.retired_pairs) + \
+                len(res.retired_matches) > 0
+    assert svc.trace_report().registry["publish_full_diffs"]["value"] == 0
     svc.close()
 
 

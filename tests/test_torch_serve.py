@@ -395,3 +395,192 @@ def test_sorted_set_ops_equal_numpy():
     a = np.array([3, 1, 7, 3], np.int64)
     assert np.array_equal(TR.isin_sorted(a, np.array([3, 7], np.int64)),
                           np.isin(a, [3, 7]))
+
+
+# -- the maintained-set edit of one batch -------------------------------------
+
+def _restrict_reference(packed, eid_sorted, iv_of):
+    """The edit's former restriction: every maintained pair unpacked and
+    both endpoints looked up among the region eids (same interval)."""
+    if packed.shape[0] == 0 or eid_sorted.shape[0] == 0:
+        return packed[:0]
+    lo, hi = TR.unpack_pairs(packed)
+    il, ih = np.searchsorted(eid_sorted, lo), np.searchsorted(eid_sorted, hi)
+    last = eid_sorted.shape[0] - 1
+    ilc, ihc = np.minimum(il, last), np.minimum(ih, last)
+    return packed[(il <= last) & (eid_sorted[ilc] == lo) & (ih <= last)
+                  & (eid_sorted[ihc] == hi) & (iv_of[ilc] == iv_of[ihc])]
+
+
+def _edit_reference(blocked, matched, after_b, after_m, region_eids,
+                    region_ivs, degraded):
+    """The edit's former formula, whole-set diffs and unions: (blocked',
+    matched', added_b, removed_b, added_m, removed_m)."""
+    if region_eids:
+        eids, ivs = np.concatenate(region_eids), np.concatenate(region_ivs)
+        order = np.argsort(eids, kind="stable")
+        eid_sorted, iv_of = eids[order], ivs[order]
+    else:
+        eid_sorted = iv_of = np.empty((0,), np.int64)
+    diff = lambda a, b: TR.setdiff_sorted(a, b) if a.shape[0] else a[:0]
+    before_b = _restrict_reference(blocked, eid_sorted, iv_of)
+    before_m = _restrict_reference(matched, eid_sorted, iv_of)
+    if degraded:
+        after_m = TR.intersect_sorted(before_m, after_b)
+    return (TR.union_sorted(diff(blocked, before_b), after_b),
+            TR.union_sorted(diff(matched, before_m), after_m),
+            diff(after_b, before_b), diff(before_b, after_b),
+            diff(after_m, before_m), diff(before_m, after_m))
+
+
+def _sn_pairs(order, w):
+    """Packed SN pairs of eids in ``order`` (ranks < w apart)."""
+    order = np.asarray(order, np.int64)
+    parts = [TR.pack_pairs(order[:-d], order[d:])
+             for d in range(1, min(w, order.shape[0]))]
+    return TR.unique_packed(np.concatenate(parts)) if parts \
+        else np.empty((0,), TR.PACKED_DTYPE)
+
+
+def _matched_of(blocked):
+    """A per-pair deterministic matcher stand-in."""
+    return blocked[(blocked * np.uint64(0x9E3779B97F4A7C15))
+                   >> np.uint64(61) == 0]
+
+
+def _random_edit(rng, kind, n=9000, w=6, muts=120):
+    """A maintained SN set of ~50k pairs over ``n`` eids in random order,
+    and the regions and after-pairs of ``muts`` random inserts or
+    deletes, as ``DeltaMatcher.insert``/``delete`` build them."""
+    from repro_torch.serve.delta import merge_intervals
+    order = rng.permutation(n).astype(np.int64) * 3 + 7
+    blocked = _sn_pairs(order, w)
+    if kind == "delete":
+        ranks = np.sort(rng.choice(n, muts, replace=False))
+        gone = order[ranks]
+        full, post = order, order[~np.isin(order, gone)]
+    else:
+        ranks = np.sort(rng.choice(n + muts, muts, replace=False))
+        full = np.empty(n + muts, np.int64)
+        new = np.zeros(n + muts, bool)
+        new[ranks] = True
+        full[new] = np.arange(muts) * 3 + 3 * n + 8
+        full[~new] = order
+        gone, post = np.empty(0, np.int64), full
+    region_eids, region_ivs, parts = [], [], []
+    for iv, (lo, hi) in enumerate(merge_intervals(ranks, w, full.shape[0])):
+        reg = full[lo:hi]
+        region_eids.append(reg)
+        region_ivs.append(np.full(reg.shape[0], iv, np.int64))
+        parts.append(_sn_pairs(reg[~np.isin(reg, gone)], w))
+    after_b = TR.unique_packed(np.concatenate(parts))
+    want = _sn_pairs(post, w)
+    return (blocked, _matched_of(blocked), after_b, _matched_of(after_b),
+            region_eids, region_ivs, want)
+
+
+def _edit_case(case):
+    """(blocked, matched, after_b, after_m, region_eids, region_ivs,
+    degraded, the blocked set the edit must leave or None)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case in ("inserts", "deletes", "degraded"):
+        b, m, ab, am, reg, ivs, want = _random_edit(
+            rng, "delete" if case == "deletes" else "insert")
+        return b, m, ab, am, reg, ivs, case == "degraded", want
+    if case == "no_regions":
+        b, m, _, _, _, _, _ = _random_edit(rng, "insert")
+        empty = b[:0]
+        return b, m, empty, empty, [], [], False, b
+    pk = lambda *ps: TR.unique_packed(TR.pack_pairs(
+        np.array([p[0] for p in ps], np.int64),
+        np.array([p[1] for p in ps], np.int64)))
+    if case == "two_intervals":
+        # (3, 4) spans intervals 0 and 1: it must stay, though both its
+        # endpoints are region eids
+        reg = [np.array([1, 2, 3]), np.array([4, 5, 6])]
+        b = pk((0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (6, 9))
+        ab = pk((1, 3), (2, 3), (4, 6))
+        return b, pk((3, 4), (5, 6)), ab, pk((4, 6)), reg, \
+            [np.zeros(3, np.int64), np.ones(3, np.int64)], False, \
+            pk((0, 1), (1, 3), (2, 3), (3, 4), (4, 6), (6, 9))
+    top = 2 ** 32 - 1
+    if case == "top_eid":
+        reg = [np.array([5, top - 1, top])]
+        b = pk((0, top), (5, top - 1), (5, top), (top - 1, top), (1, 2))
+        ab = pk((5, top), (top - 1, top))
+        return b, b, ab, pk((top - 1, top)), reg, [np.zeros(3, np.int64)], \
+            False, pk((0, top), (1, 2), (5, top), (top - 1, top))
+    assert case == "after_present"
+    # (2, 9) and (5, 9) are maintained and lie outside the region, yet
+    # the after-pairs carry them
+    reg = [np.array([2, 5])]
+    b = pk((2, 5), (2, 9), (5, 9), (9, 11))
+    ab = pk((2, 5), (2, 9), (5, 9))
+    return b, pk((2, 9)), ab, pk((2, 9), (5, 9)), reg, \
+        [np.zeros(2, np.int64)], False, b
+
+
+EDIT_CASES = ["inserts", "deletes", "degraded", "no_regions",
+              "two_intervals", "top_eid", "after_present"]
+
+
+@pytest.mark.parametrize("case", EDIT_CASES)
+def test_edit_equals_the_whole_set_formula(case):
+    """``DeltaMatcher._apply``'s edit (lookups by each region eid's slice
+    of the sorted sets, then one splice) leaves the sets and the
+    ``DeltaStats`` the whole-set diffs and unions leave, bit for bit."""
+    from repro_torch.serve.delta import DeltaMatcher
+    b, m, ab, am, reg, ivs, degraded, want = _edit_case(case)
+    dm = DeltaMatcher(TA.ERConfig(**_kw()), SortedIndex(W), device="cpu")
+    dm._device_pairs = lambda regions: (ab, am, len(regions), ((2, 64),))
+    dm._host_pairs = lambda regions: ab
+    nb, nm, st = dm._apply(b, m, reg, reg, ivs, 7, degraded=degraded,
+                           comp_ranges=((1, 2),))
+    ref = _edit_reference(b, m, ab, am, reg, ivs, degraded)
+    got = (nb, nm, st.added_blocked, st.removed_blocked, st.added_matched,
+           st.removed_matched)
+    for name, g, r in zip(("blocked", "matched", "added_blocked",
+                           "removed_blocked", "added_matched",
+                           "removed_matched"), got, ref):
+        assert g.dtype == r.dtype == TR.PACKED_DTYPE and \
+            np.array_equal(g, r), name
+    assert np.array_equal(nb, want)
+    assert nb.size == np.unique(nb).size and nm.size == np.unique(nm).size
+    calls = 0 if degraded else len(reg)
+    assert st == st._replace(
+        batch=7, regions=len(reg), region_rows=sum(r.size for r in reg),
+        device_calls=calls, shapes=() if degraded else ((2, 64),),
+        degraded=degraded, comp_ranges=((1, 2),))
+    if case in ("inserts", "deletes"):
+        assert st.added_blocked.size and st.removed_blocked.size
+
+
+@pytest.mark.parametrize("variant", ["repsn", "srp"])
+def test_published_edit_is_the_served_sets_diff(corpus, variant):
+    """Each ``IncrementalResult``'s four sets equal the diff of the served
+    sets snapshotted before and after its batch, over mixed inserts and
+    deletes; a boundary-complete variant publishes the batch's edit (no
+    whole-set diff), SRP diffs once a batch."""
+    svc = TA.serve(TA.ERConfig(**_kw(variant=variant, trace=True)),
+                   initial=_take(corpus, slice(0, 260)), start=False,
+                   device="cpu")
+    eid = corpus["eid"]
+    for kind, arg in [("insert", slice(260, 300)), ("delete", eid[40:44]),
+                      ("insert", slice(300, 302)), ("delete", eid[[0, 7]]),
+                      ("delete", eid[100:160]), ("insert", slice(302, 390)),
+                      ("insert", slice(100, 130))]:
+        b0, m0 = svc.packed_pairs, svc.packed_matches
+        res = svc.resolve_incremental(_take(corpus, arg)) \
+            if kind == "insert" else svc.delete(arg)
+        b1, m1 = svc.packed_pairs, svc.packed_matches
+        for got, (a, b) in [(res.new_pairs, (b1, b0)),
+                            (res.retired_pairs, (b0, b1)),
+                            (res.new_matches, (m1, m0)),
+                            (res.retired_matches, (m0, m1))]:
+            assert got == TR.packed_to_frozenset(np.setdiff1d(a, b))
+        assert set(res.pair_ids) == res.new_pairs
+    st = svc.stats()
+    fulls = svc.trace_report().registry["publish_full_diffs"]["value"]
+    assert fulls == (st.batches if variant == "srp" else 0)
+    assert st.batches == 8
+    svc.close()
