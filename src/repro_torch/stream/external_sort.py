@@ -18,7 +18,9 @@ one accelerator the same global order is produced out-of-core in two steps:
 
 The merged stream is yielded as host blocks of at most ``block`` rows — the
 consumer (``resolver``) never sees, and the process never materializes, the
-full sorted corpus in one array.
+full sorted corpus in one array.  Under an active tracer each yielded block
+adds one to the ``merge_blocks`` counter: the merge's work grows with the
+(key, run) pairs of the corpus, one block per run that holds a key.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Iterator, List
 
 import numpy as np
 
+from repro_torch import obs as OBS
 from repro_torch.core import entities as E
 from repro_torch.stream.store import ChunkStore
 
@@ -46,6 +49,9 @@ def merged_blocks(runs: ChunkStore, block: int) -> Iterator[dict]:
     progress and stays deterministic."""
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
+    tracer = OBS.current_tracer()
+    blocks = None if tracer is None else tracer.metrics.counter(
+        "merge_blocks")
     comps = _composites(runs)
     cursors = [0] * len(runs)
     active = [i for i in range(len(runs)) if comps[i].shape[0] > 0]
@@ -63,6 +69,8 @@ def merged_blocks(runs: ChunkStore, block: int) -> Iterator[dict]:
         end = min(end, cursors[i] + block)
         if i not in open_runs:              # payload loads lazily, once
             open_runs[i] = runs.load(i)
+        if blocks is not None:
+            blocks.inc()
         yield E.host_take(open_runs[i], slice(cursors[i], end))
         cursors[i] = end
         if end == ci.shape[0]:

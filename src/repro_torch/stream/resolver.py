@@ -487,8 +487,9 @@ def _stream_pass_body(raw: ChunkStore, cfg: ERConfig, spec,
     # hashes there, 15-22 s on 12.6M pairs (PERF.md)
     dedup = lambda parts: RES.unique_packed(np.concatenate(parts)) \
         if parts else np.empty((0,), RES.PACKED_DTYPE)
-    blocked = dedup(blocked_parts)
-    matched = dedup(matched_parts)
+    with OBS.span("union", chunks=len(blocked_parts)):
+        blocked = dedup(blocked_parts)
+        matched = dedup(matched_parts)
     blocking = BlockingResult(
         pairs=RES.packed_to_frozenset(blocked),
         load=tuple(int(x) for x in load_max), overflow=overflow,

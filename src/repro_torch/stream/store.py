@@ -1,5 +1,6 @@
 """Spooled chunk storage — the out-of-core buffer behind ``resolve_stream``
-(port of ``repro.stream.store``; numpy only, the same on-disk layout).
+(port of ``repro.stream.store``; numpy and the leaf ``obs``, the same
+on-disk layout).
 
 A ``ChunkStore`` holds a sequence of HOST entity chunks (the numpy schema of
 ``core.entities.to_host``) either in memory (default) or spooled to disk as
@@ -23,6 +24,10 @@ is the one boundary: ``disk_arrays`` writes those fields as uint32 and
 ``host_entities`` reads them back as int32 views, so spool, carry and
 checkpoint files are the reference's byte for byte and a checkpoint
 either package wrote resumes in the other.
+
+**Tracing.**  A spooled store's disk writes and reads are ``spool`` spans
+(``op`` = ``write``, ``read``, ``index`` or ``field``); an in-memory store
+(``spool_dir=None``, as the serve index's) opens none.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from repro_torch import obs as OBS
 from repro_torch.core.entities import UINT32_FIELDS
 
 _PAYLOAD_PREFIX = "payload__"
@@ -175,7 +181,8 @@ class ChunkStore:
         path = os.path.join(self.spool_dir, f"{self.prefix}{i:06d}.npz")
         # tmp-then-rename: a crash mid-append can never leave a torn chunk
         # file behind for a resumed run to trip over
-        atomic_savez(path, **disk_arrays(ents))
+        with OBS.span("spool", op="write"):
+            atomic_savez(path, **disk_arrays(ents))
         self.spooled_bytes += os.path.getsize(path)
         self._mem.append(None)
         self._paths.append(path)
@@ -184,7 +191,8 @@ class ChunkStore:
         """Read chunk ``i`` back as a host entity dict."""
         if self._mem[i] is not None:
             return self._mem[i]
-        with np.load(self._paths[i], allow_pickle=False) as z:
+        with OBS.span("spool", op="read"), \
+                np.load(self._paths[i], allow_pickle=False) as z:
             return host_entities(z)
 
     def load_index(self, i: int) -> Dict[str, np.ndarray]:
@@ -192,7 +200,8 @@ class ChunkStore:
         index; payload members stay unread on disk)."""
         if self._mem[i] is not None:
             return {"key": self._mem[i]["key"], "eid": self._mem[i]["eid"]}
-        with np.load(self._paths[i], allow_pickle=False) as z:
+        with OBS.span("spool", op="index"), \
+                np.load(self._paths[i], allow_pickle=False) as z:
             return {"key": z["key"], "eid": z["eid"]}
 
     def load_field(self, i: int, name: str) -> np.ndarray:
@@ -201,7 +210,8 @@ class ChunkStore:
         counts ``src`` tags this way without re-reading the corpus)."""
         if self._mem[i] is not None:
             return self._mem[i]["payload"][name]
-        with np.load(self._paths[i], allow_pickle=False) as z:
+        with OBS.span("spool", op="field"), \
+                np.load(self._paths[i], allow_pickle=False) as z:
             return host_column(name, z[_PAYLOAD_PREFIX + name])
 
     def payload_fields(self) -> tuple:

@@ -15,11 +15,12 @@ pair set).
     retraces)
   * the port's Chrome export read by the reference's ``tools/
     trace_report.py``
-  * the port's own spans (``PORT_ONLY_SPANS``, dropped from every parity
-    check and held disjoint from the reference's): the public frozensets,
-    the serve batch's steps and the collector's passes, whose
-    ``gc.callbacks`` hook is installed only while a tracer is active and
-    cannot deadlock the tracer
+  * the port's own spans and metrics (``PORT_ONLY_SPANS``,
+    ``PORT_ONLY_METRICS``, dropped from every parity check and held
+    disjoint from the reference's): the public frozensets, the serve
+    batch's steps, a stream's spool and union, the merge's blocks and the
+    collector's passes, whose ``gc.callbacks`` hook is installed only
+    while a tracer is active and cannot deadlock the tracer
 """
 import collections
 import gc
@@ -68,10 +69,14 @@ def _chunks(ents, sz=150):
 
 
 # spans only the port opens: its host work (the public frozensets, the
-# serve batch's steps) and CPython's collector passes; a parity check
-# drops them, re-parenting their children to the nearest kept ancestor
+# serve batch's steps, a stream's disk spool and its union of the chunk
+# outcomes) and CPython's collector passes; a parity check drops them,
+# re-parenting their children to the nearest kept ancestor
 PORT_ONLY_SPANS = frozenset({"frozensets", "gc", "index", "delta_pairs",
-                             "set_algebra", "compact", "publish"})
+                             "set_algebra", "compact", "publish", "spool",
+                             "union"})
+# metrics only the port records (the k-way merge's yielded blocks)
+PORT_ONLY_METRICS = frozenset({"merge_blocks"})
 
 
 def _edges(spans):
@@ -89,9 +94,14 @@ def _edges(spans):
                                if s.name not in PORT_ONLY_SPANS)
 
 
+def _metric_names(registry):
+    """The names of a registry's metrics without ``PORT_ONLY_METRICS``."""
+    return set(registry) - PORT_ONLY_METRICS
+
+
 def _same_trace(ref, port):
     assert _edges(port.spans) == _edges(ref.spans)
-    assert set(port.registry) == set(ref.registry)
+    assert _metric_names(port.registry) == _metric_names(ref.registry)
 
 
 # -- unit semantics, both packages -------------------------------------------
@@ -348,7 +358,8 @@ def test_traced_kill_and_resume_match_reference(ents, tmp_path):
                                       **extra)
         runs[name] = (killed, resumed)
     (rk, rres), (pk, pres) = runs["ref"], runs["port"]
-    assert _edges(pk[0]) == _edges(rk[0]) and set(pk[1]) == set(rk[1])
+    assert _edges(pk[0]) == _edges(rk[0]) and \
+        _metric_names(pk[1]) == _metric_names(rk[1])
     _same_trace(rres.trace, pres.trace)
     assert pres.pairs == plain.pairs == rres.pairs
     assert pres.matches == plain.matches == rres.matches
@@ -446,6 +457,7 @@ def test_port_only_spans_are_not_reference_spans(ents):
     ref_names = {s.name for r in ref for s in r.trace.spans}
     assert {"resolve", "attempt", "chunk"} <= ref_names
     assert not PORT_ONLY_SPANS & ref_names
+    assert not PORT_ONLY_METRICS & {m for r in ref for m in r.trace.registry}
     for r in port:
         assert "frozensets" in {s.name for s in r.trace.spans}
 
