@@ -157,8 +157,8 @@ the card line, and the last line ``{"ok": true, "device": {...}}``.  Every
 phase raises on failure, so the script exits non-zero and prints no result
 line.  It exits non-zero without a CUDA card, and where ``src/repro_torch``
 is not beside it.  Every gate reads a public pair set's packed uint64
-form (``_PackedSets``), kept from where the set was built, instead of
-packing its tuples again.
+form (its ``PairSet``'s own array, through ``pack_pair_set``) instead of
+packing its tuples.
 
 TF32 is switched off for matmuls and cuDNN (the cascade gate's slack is
 GATE_EPS = 1e-5, K4's f32 tolerance 2e-5; the kernels use plain IEEE f32
@@ -1330,55 +1330,10 @@ def _counted_resolve(ents, cfg, label, passes=1):
     return res, secs
 
 
-class _PackedSets:
-    """The packed form of every public pair set.  Every resolve, stream
-    and serve result builds its frozensets of (lo, hi) tuples in one
-    place, ``api.results.packed_to_frozenset``, from a packed uint64
-    array; while installed, the wrapper keeps that array (sorted and
-    distinct) beside the frozenset it built, for as long as the set
-    lives.  A gate then reads a set's packed form here instead of packing
-    its tuples again (13-18 s for 12.6M), and compares two sets as their
-    packed arrays, which stand one-to-one for them, instead of as
-    frozensets (~10 s); a set built elsewhere (a multi-pass union) is
-    packed once."""
-
-    def __init__(self):
-        self.arrays, self.saved = {}, None
-
-    def install(self):
-        import weakref
-
-        import numpy as np
-        from repro_torch.api import results as RES
-        self.saved = build = RES.packed_to_frozenset
-
-        def packed_to_frozenset(packed):
-            pairs = build(packed)
-            packed = np.asarray(packed, RES.PACKED_DTYPE)
-            if not np.all(packed[1:] > packed[:-1]):
-                packed = RES.unique_packed(packed)
-            key = id(pairs)
-            self.arrays[key] = (weakref.ref(
-                pairs, lambda _, key=key: self.arrays.pop(key, None)), packed)
-            return pairs
-
-        RES.packed_to_frozenset = packed_to_frozenset
-
-    def get(self, pairs):
-        """The sorted packed uint64 array of the set ``pairs``."""
-        from repro_torch.api.results import pack_pair_set
-        ref, packed = self.arrays.get(id(pairs), (None, None))
-        if ref is not None and ref() is pairs:
-            return packed
-        return pack_pair_set(pairs)
-
-
-PACKED = _PackedSets()
-
-
 def _packed_sets(res):
     """(blocked, matched) of a result as sorted packed uint64 arrays."""
-    return PACKED.get(res.blocking.pairs), PACKED.get(res.matches)
+    from repro_torch.api.results import pack_pair_set
+    return pack_pair_set(res.blocking.pairs), pack_pair_set(res.matches)
 
 
 def _same_sets(a, b) -> bool:
@@ -1618,7 +1573,7 @@ def phase_quality():
     import numpy as np
     import torch
     from repro_torch import api, quality
-    from repro_torch.api.results import union_sorted
+    from repro_torch.api.results import pack_pair_set, union_sorted
     from repro_torch.balance import profile_keys
     from repro_torch.core import keys as K
     from repro_torch.data import labeled_corpus
@@ -1659,9 +1614,9 @@ def phase_quality():
             lap("resolve")
             for part in getattr(res, "passes", (res,)):
                 _zero_overflow(part, f"quality {label}")
-            blocked[label] = PACKED.get(res.blocking.pairs)
+            blocked[label] = pack_pair_set(res.blocking.pairs)
             if label == "multipass8":
-                blocked["passes"] = [PACKED.get(p.blocking.pairs)
+                blocked["passes"] = [pack_pair_set(p.blocking.pairs)
                                      for p in res.passes]
             q[label] = quality.evaluate(blocked[label], tc)
             runs[label] = {"resolve_s": secs,
@@ -1912,13 +1867,14 @@ def _check_edit(label, svc, res, prev):
     disjoint from prev and retired inside it, and a pair id for every new
     pair.  Returns the served sets now."""
     import numpy as np
-    from repro_torch.api.results import setdiff_sorted, union_sorted
+    from repro_torch.api.results import (pack_pair_set, setdiff_sorted,
+                                         union_sorted)
     now = (svc.packed_pairs, svc.packed_matches)
     for (new, gone), before, after, what in (
             ((res.new_pairs, res.retired_pairs), prev[0], now[0], "pairs"),
             ((res.new_matches, res.retired_matches), prev[1], now[1],
              "matches")):
-        new, gone = PACKED.get(new), PACKED.get(gone)
+        new, gone = pack_pair_set(new), pack_pair_set(gone)
         if setdiff_sorted(gone, before).size or \
                 setdiff_sorted(new, before).size != new.size or \
                 not np.array_equal(union_sorted(setdiff_sorted(before, gone),
@@ -3542,7 +3498,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    PACKED.install()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

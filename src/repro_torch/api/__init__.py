@@ -5,8 +5,9 @@
 
     ents = E.synth_entities(np.random.default_rng(0), 2_000, n_keys=512)
     res = api.resolve(ents, api.ERConfig(variant="repsn", num_shards=8))
-    res.blocking.pairs      # frozenset of blocked (candidate) pairs
-    res.matches             # frozenset of matcher-accepted pairs
+    res.blocking.pairs      # PairSet of blocked (candidate) pairs
+    res.matches             # PairSet of matcher-accepted pairs
+    res.matches.packed      # the same set as its sorted packed uint64 array
 
 Runs on the CUDA card unless ``device="cpu"`` is passed.  Under
 ``ERConfig(passes=...)`` ``resolve`` returns a ``MultiPassResult``;
@@ -26,7 +27,8 @@ from repro_torch.api.facade import default_bounds, link, make_runner, \
 from repro_torch.api.linkage import sequential_link_pairs, tag_sources
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
                                      ERMetrics, ERResult, MultiPassResult,
-                                     PerfStats, ResilienceStats, pack_pairs,
+                                     PairSet, PerfStats, ResilienceStats,
+                                     pack_pairs,
                                      packed_pairs_from_band,
                                      packed_pairs_from_idx,
                                      packed_pairs_from_part,
@@ -69,7 +71,7 @@ __all__ = [
     "ResilienceStats", "StreamCheckpoint", "FaultPlan", "InjectedFault",
     "CapacityOverflowError",
     "BlockingResult", "ERResult", "ERMetrics", "BalanceMetrics", "PerfStats",
-    "MultiPassResult",
+    "MultiPassResult", "PairSet",
     "pairs_from_band",
     "packed_pairs_from_band", "packed_pairs_from_idx",
     "packed_pairs_from_part", "pack_pairs", "unpack_pairs",

@@ -30,8 +30,8 @@ from repro_torch import obs as OBS
 from repro_torch.api import linkage as LK
 from repro_torch.api.config import ERConfig
 from repro_torch.api.results import (BalanceMetrics, BlockingResult,
-                                     ERResult, MultiPassResult, PerfStats,
-                                     compute_metrics)
+                                     ERResult, MultiPassResult, PairSet,
+                                     PerfStats, compute_metrics)
 from repro_torch.api.runners import (Runner, SequentialRunner,
                                      ShardMapRunner, VmapRunner)
 from repro_torch.core import entities as E
@@ -259,7 +259,7 @@ def _resolve(ents: dict, cfg: ERConfig, *, bounds, mesh, axis: str,
             if cfg.runner == "sequential" and \
                     cfg.prune_policy == "off" and \
                     get_variant(cfg.variant).boundary_complete:
-                oracle = set(out.blocked)
+                oracle = out.blocked
             else:
                 oracle = _host_oracle(ents, cfg)
             metrics = _replace(
@@ -281,7 +281,7 @@ def union_blocking(results, cfg, runner_name: str) -> BlockingResult:
     """Union BlockingResult across passes: pair union + additive accounting
     (``load`` stays empty — per-pass shard loads live on the pass results).
     ``results`` is any sequence of objects carrying ``.blocking``."""
-    union = frozenset().union(*(r.blocking.pairs for r in results))
+    union = PairSet().union(*(r.blocking.pairs for r in results))
     return BlockingResult(
         pairs=union, load=(),
         overflow=sum(r.blocking.overflow for r in results),
@@ -324,7 +324,7 @@ def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds, mesh,
                         balance=res.balance))
         results.append(res)
     results = tuple(results)
-    matches = frozenset().union(*(r.matches for r in results))
+    matches = PairSet().union(*(r.matches for r in results))
     blocking = union_blocking(results, cfg, results[0].blocking.runner)
     metrics = None
     if cfg.compute_metrics:

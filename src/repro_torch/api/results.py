@@ -8,13 +8,15 @@ quality metrics computed against the sequential oracle.
 Internally pairs travel as PACKED uint64 arrays — ``(lo << 32) | hi`` with
 ``lo < hi`` eids — deduplicated by ``unique_packed`` (one sort).  Collection is then one
 batched nonzero + pack + unique (linear, vectorized) instead of building
-millions of Python tuples; frozensets of (lo, hi) tuples appear only at the
-public ``RunnerOutcome``/``BlockingResult`` boundary.
+millions of Python tuples.  At the public ``RunnerOutcome``/
+``BlockingResult`` boundary the arrays become ``PairSet``s: read-only sets
+of (lo, hi) tuples that box a pair only when a caller iterates.
 """
 from __future__ import annotations
 
+from collections.abc import Set as AbstractSet
 from dataclasses import dataclass
-from typing import FrozenSet, NamedTuple, Optional, Set, Tuple
+from typing import NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 
@@ -104,7 +106,10 @@ def unpack_pairs(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def pack_pair_set(pairs: Set[Pair]) -> np.ndarray:
-    """Host pair set -> sorted deduplicated packed array."""
+    """Host pair set -> sorted deduplicated packed array (a ``PairSet``'s
+    own array)."""
+    if isinstance(pairs, PairSet):
+        return pairs.packed
     if not pairs:
         return np.empty((0,), PACKED_DTYPE)
     flat = np.fromiter((c for p in pairs for c in p), np.int64,
@@ -112,12 +117,242 @@ def pack_pair_set(pairs: Set[Pair]) -> np.ndarray:
     return unique_packed(pack_pairs(flat[:, 0], flat[:, 1]))
 
 
-def packed_to_frozenset(packed: np.ndarray) -> FrozenSet[Pair]:
-    """Packed array -> public frozenset of (lo, hi) tuples (the one place
-    Python pair objects are materialized), in a ``frozensets`` span."""
+_EID_LIMIT = 1 << 32
+_ITER_BLOCK = 1 << 16
+
+
+def _eid(x) -> Optional[int]:
+    """``x`` as the Python int it equals (a numpy int, a bool, an integral
+    float), or None where no int equals it."""
+    try:
+        i = int(x)
+        return i if i == x else None
+    except (TypeError, ValueError, OverflowError):
+        return None
+
+
+def _pack_iterable(pairs) -> Tuple[np.ndarray, list]:
+    """Any iterable -> (sorted distinct packed array of its canonical
+    ``(lo, hi)`` pairs, the items that are not such a pair).  One
+    ``fromiter`` over the pairs, packed as they come; the items left over
+    are what no ``PairSet`` holds and no member equals: a non-pair,
+    ``(hi, lo)``, an eid outside [0, 2^32)."""
+    rest = []
+
+    def packed():
+        for p in pairs:
+            if isinstance(p, tuple) and len(p) == 2:
+                a, b = p
+                if type(a) is not int or type(b) is not int:
+                    a, b = _eid(a), _eid(b)
+                    if a is None or b is None:
+                        rest.append(p)
+                        continue
+                if 0 <= a < b < _EID_LIMIT:
+                    yield (a << 32) | b
+                    continue
+            rest.append(p)
+
+    return unique_packed(np.fromiter(packed(), PACKED_DTYPE)), rest
+
+
+class PairSet(AbstractSet):
+    """Immutable set of ``(lo, hi)`` eid tuples held as the sorted distinct
+    packed ``uint64`` array the program computed (``.packed``, read-only).
+
+    Behaves as the ``frozenset`` of the same tuples: ``len`` and ``bool``
+    are O(1), ``in`` is one ``searchsorted`` (``(hi, lo)`` and non-pairs
+    are not members), iteration yields Python-int tuples in ascending
+    packed order, ``==`` and ``hash`` agree with the frozenset's, and the
+    operators and frozenset method names return a ``PairSet``: between two
+    ``PairSet``s on the arrays alone, against any other iterable after one
+    packing pass.  Where a result would hold what no ``PairSet`` can (a
+    union with ``(hi, lo)``, say), it is a ``frozenset`` instead.  Pairs
+    become tuples only while a caller iterates; under an active tracer
+    they are counted in its ``pairs_boxed`` counter.  One ``in`` costs a
+    few microseconds, more than a frozenset's hash probe: to test many
+    pairs, pack them (``pack_pairs``) and test them all at once with
+    ``isin_sorted(queries, s.packed)``."""
+
+    __slots__ = ("_a", "_h", "__weakref__")
+
+    def __init__(self, packed: Optional[np.ndarray] = None):
+        """``packed``: canonical packed pairs (``lo < hi``), in any order
+        and with repeats; held as a sorted, distinct, read-only copy.
+        Raises ValueError on a value that packs no canonical pair."""
+        a = np.empty((0,), PACKED_DTYPE) if packed is None \
+            else np.array(packed, PACKED_DTYPE).reshape(-1)
+        if a.size > 1 and not (a[1:] > a[:-1]).all():
+            a = unique_packed(a)
+        if a.size and not ((a >> np.uint64(32))
+                           < (a & np.uint64(_EID_LIMIT - 1))).all():
+            raise ValueError("PairSet: a packed value has lo >= hi")
+        self._hold(a)
+
+    @classmethod
+    def _of(cls, packed: np.ndarray) -> "PairSet":
+        """A ``PairSet`` over ``packed``, which must already be sorted,
+        distinct and canonical (as from ``unique_packed``), held as a
+        read-only view: pass a copy if its owner may write it later."""
+        s = cls.__new__(cls)
+        s._hold(np.asarray(packed, PACKED_DTYPE).reshape(-1))
+        return s
+
+    def _hold(self, a: np.ndarray) -> None:
+        a = a.view()
+        a.flags.writeable = False
+        self._a = a
+        self._h = None
+
+    @property
+    def packed(self) -> np.ndarray:
+        """The sorted distinct packed uint64 array (read-only)."""
+        return self._a
+
+    def __len__(self) -> int:
+        return self._a.size
+
+    def __contains__(self, item) -> bool:
+        if not (isinstance(item, tuple) and len(item) == 2):
+            return False
+        lo, hi = item
+        if type(lo) is not int or type(hi) is not int:
+            lo, hi = _eid(lo), _eid(hi)
+            if lo is None or hi is None:
+                return False
+        if not 0 <= lo < hi < _EID_LIMIT:
+            return False
+        a, v = self._a, PACKED_DTYPE((lo << 32) | hi)
+        i = a.searchsorted(v)
+        return i < a.size and bool(a[i] == v)
+
+    def __iter__(self):
+        a = self._a
+        for s in range(0, a.size, _ITER_BLOCK):
+            lo, hi = unpack_pairs(a[s:s + _ITER_BLOCK])
+            t = OBS.current_tracer()
+            if t is not None:
+                t.metrics.counter("pairs_boxed").inc(lo.size)
+            yield from zip(lo.tolist(), hi.tolist())
+
+    def __repr__(self) -> str:
+        if len(self) > 8:
+            return f"PairSet(<{len(self)} pairs>)"
+        return "PairSet({" + ", ".join(map(repr, self)) + "})" if self \
+            else "PairSet()"
+
+    def __reduce__(self):
+        return PairSet, (self._a,)
+
+    def __hash__(self) -> int:
+        if self._h is None:
+            self._h = AbstractSet._hash(self)
+        return self._h
+
+    @staticmethod
+    def _packed(other) -> Tuple[np.ndarray, list]:
+        """``other``'s canonical pairs packed, and its other items."""
+        if isinstance(other, PairSet):
+            return other._a, []
+        return _pack_iterable(other)
+
+    # -- comparisons ------------------------------------------------------
+
+    def __eq__(self, other):
+        if isinstance(other, PairSet):
+            return np.array_equal(self._a, other._a)
+        if not isinstance(other, AbstractSet):
+            return NotImplemented
+        if len(other) != len(self):
+            return False
+        o, rest = self._packed(other)
+        return not rest and np.array_equal(self._a, o)
+
+    def issubset(self, other) -> bool:
+        return bool(isin_sorted(self._a, self._packed(other)[0]).all())
+
+    def issuperset(self, other) -> bool:
+        o, rest = self._packed(other)
+        return not rest and bool(isin_sorted(o, self._a).all())
+
+    def isdisjoint(self, other) -> bool:
+        return not isin_sorted(self._packed(other)[0], self._a).any()
+
+    def _proper_subset(self, other) -> bool:
+        o, rest = self._packed(other)
+        return bool(isin_sorted(self._a, o).all()) and \
+            (bool(rest) or o.size > self._a.size)
+
+    def _proper_superset(self, other) -> bool:
+        o, rest = self._packed(other)
+        return not rest and o.size < self._a.size and \
+            bool(isin_sorted(o, self._a).all())
+
+    # -- set algebra --------------------------------------------------------
+
+    def union(self, *others):
+        out, rest = self._a, []
+        for other in others:
+            o, r = self._packed(other)
+            out = union_sorted(out, o)
+            rest += r
+        return frozenset(PairSet._of(out)).union(rest) if rest else PairSet._of(out)
+
+    def intersection(self, *others):
+        out = self._a
+        for other in others:
+            out = intersect_sorted(out, self._packed(other)[0])
+        return PairSet._of(out)
+
+    def difference(self, *others):
+        out = self._a
+        for other in others:
+            out = setdiff_sorted(out, self._packed(other)[0])
+        return PairSet._of(out)
+
+    def symmetric_difference(self, other):
+        o, rest = self._packed(other)
+        out = PairSet._of(union_sorted(setdiff_sorted(self._a, o),
+                                   setdiff_sorted(o, self._a)))
+        return frozenset(out).union(rest) if rest else out
+
+    def copy(self) -> "PairSet":
+        return self
+
+    def _rdifference(self, other):
+        """``other - self``."""
+        o, rest = self._packed(other)
+        out = PairSet._of(setdiff_sorted(o, self._a))
+        return frozenset(out).union(rest) if rest else out
+
+    def _operator(method):
+        def op(self, other):
+            return method(self, other) if isinstance(other, AbstractSet) \
+                else NotImplemented
+        return op
+
+    __le__ = _operator(issubset)
+    __lt__ = _operator(_proper_subset)
+    __ge__ = _operator(issuperset)
+    __gt__ = _operator(_proper_superset)
+    __or__ = __ror__ = _operator(union)
+    __and__ = __rand__ = _operator(intersection)
+    __xor__ = __rxor__ = _operator(symmetric_difference)
+    __sub__ = _operator(difference)
+    __rsub__ = _operator(_rdifference)
+    del _operator
+
+
+def packed_to_frozenset(packed: np.ndarray) -> AbstractSet[Pair]:
+    """Packed array -> the public pair set: a ``PairSet`` over the array,
+    which boxes no pair until a caller iterates it.  The name is kept from
+    when this built a ``frozenset``; so is its ``frozensets`` span, which
+    also registers the active tracer's ``pairs_boxed`` counter."""
     with OBS.span("frozensets", pairs=len(packed)):
-        lo, hi = unpack_pairs(packed)
-        return frozenset(zip(lo.tolist(), hi.tolist()))
+        t = OBS.current_tracer()
+        if t is not None:
+            t.metrics.counter("pairs_boxed")
+        return PairSet._of(packed)
 
 
 class CollectedPairs(NamedTuple):
@@ -207,7 +442,7 @@ class ERMetrics:
 @dataclass(frozen=True)
 class BlockingResult:
     """Outcome of the blocking stage (candidate generation)."""
-    pairs: FrozenSet[Pair]          # blocked (candidate) pairs, (lo, hi) eids
+    pairs: AbstractSet[Pair]        # blocked (candidate) pairs, (lo, hi) eids
     load: Tuple[int, ...]           # per-shard valid counts (skew telemetry)
     overflow: int                   # entities dropped by capacity limits
     variant: str
@@ -248,7 +483,7 @@ class ERResult:
     backed ShardPlan (any ``cfg.partitioner`` default-bounds run); runs on
     explicit raw bounds have no plan to compare against and carry None."""
     blocking: BlockingResult
-    matches: FrozenSet[Pair]        # matcher-accepted pairs
+    matches: AbstractSet[Pair]      # matcher-accepted pairs
     metrics: Optional[ERMetrics] = None
     balance: Optional[BalanceMetrics] = None
     perf: Optional[PerfStats] = None  # executable-cache telemetry for this
@@ -260,7 +495,7 @@ class ERResult:
     #                                 the run executed under trace=True
 
     @property
-    def pairs(self) -> FrozenSet[Pair]:
+    def pairs(self) -> AbstractSet[Pair]:
         """The blocked (candidate) pair set — sugar for blocking.pairs."""
         return self.blocking.pairs
 
@@ -280,14 +515,14 @@ class MultiPassResult:
     passes: Tuple[ERResult, ...]
     pass_names: Tuple[str, ...]
     blocking: BlockingResult
-    matches: FrozenSet[Pair]
+    matches: AbstractSet[Pair]
     metrics: Optional[ERMetrics] = None
     resilience: Optional[ResilienceStats] = None  # summed across passes
     trace: Optional[object] = None  # repro_torch.obs.TraceReport spanning
     #                                 every pass (trace=True)
 
     @property
-    def pairs(self) -> FrozenSet[Pair]:
+    def pairs(self) -> AbstractSet[Pair]:
         """The union blocked pair set — sugar for blocking.pairs."""
         return self.blocking.pairs
 
@@ -364,7 +599,7 @@ def pairs_from_band(part: dict, field: str = "match") -> Set[Pair]:
     return set(packed_to_frozenset(packed_pairs_from_band(part, field)))
 
 
-def compute_metrics(blocked: FrozenSet[Pair], oracle: Set[Pair],
+def compute_metrics(blocked: AbstractSet[Pair], oracle: Set[Pair],
                     total_comparisons: int) -> ERMetrics:
     """Standard blocking-quality metrics of ``blocked`` against the
     sequential-SN ``oracle`` pair set: reduction ratio = 1 − |blocked| /

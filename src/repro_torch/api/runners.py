@@ -29,8 +29,9 @@ reuses one program.  ``jit_cache=False`` runs the shard program eagerly.
 """
 from __future__ import annotations
 
+from collections.abc import Set as AbstractSet
 from dataclasses import dataclass
-from typing import Any, FrozenSet, NamedTuple, Optional, Protocol, Tuple, \
+from typing import Any, NamedTuple, Optional, Protocol, Tuple, \
     runtime_checkable
 
 import numpy as np
@@ -88,8 +89,8 @@ def _run_program(program, head: tuple, cap_link, args: tuple, cfg):
 class RunnerOutcome(NamedTuple):
     """What every runner returns: host pair sets + accounting (see the
     reference's ``RunnerOutcome`` for each counter)."""
-    blocked: FrozenSet[Pair]
-    matched: FrozenSet[Pair]
+    blocked: AbstractSet[Pair]
+    matched: AbstractSet[Pair]
     load: Tuple[int, ...]
     overflow: int
     num_shards: int
@@ -115,7 +116,8 @@ class PackedOutcome(NamedTuple):
     pruned: int = 0
 
     def to_outcome(self) -> RunnerOutcome:
-        """Materialize the public RunnerOutcome (frozensets of (lo, hi))."""
+        """The public RunnerOutcome (``PairSet``s of (lo, hi) over the
+        packed arrays)."""
         return RunnerOutcome(
             blocked=RES.packed_to_frozenset(self.blocked),
             matched=RES.packed_to_frozenset(self.matched),

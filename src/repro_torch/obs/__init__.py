@@ -27,7 +27,10 @@ without cycles; the schema's class lookups resolve lazily at unpack
 time.  Device spans (``shard_program``) are fenced with
 ``torch.cuda.synchronize`` by their call site, only while a tracer is
 active.  While any tracer is active each CPython collection is a ``gc``
-span on the collecting thread's tracer (``trace.py``).
+span on the collecting thread's tracer (``trace.py``).  The
+``pairs_boxed`` counter, registered by every traced ``packed_to_frozenset``
+call, counts the (lo, hi) tuples a public ``PairSet`` yields while it is
+iterated under an active tracer (0 where a caller reads only sizes).
 
 Invariant 12: tracing never changes pair sets.
 """

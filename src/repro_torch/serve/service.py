@@ -46,8 +46,9 @@ import os
 import queue
 import threading
 import time
+from collections.abc import Set as AbstractSet
 from concurrent.futures import Future, InvalidStateError
-from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -134,10 +135,10 @@ class IncrementalResult(NamedTuple):
     ``degraded=True`` marks a batch applied through the brownout path:
     its blocked edits are exact, but new matches are deferred until the
     ``repair`` pass re-resolves the touched ranges (DESIGN.md §13)."""
-    new_pairs: FrozenSet[Pair]
-    retired_pairs: FrozenSet[Pair]
-    new_matches: FrozenSet[Pair]
-    retired_matches: FrozenSet[Pair]
+    new_pairs: AbstractSet[Pair]
+    retired_pairs: AbstractSet[Pair]
+    new_matches: AbstractSet[Pair]
+    retired_matches: AbstractSet[Pair]
     pair_ids: Dict[Pair, int]
     batched: int
     stats: ServeStats
@@ -576,7 +577,7 @@ class ResolutionService:
         if self._tracer is not None:
             self._tracer.metrics.gauge("brownout").set(
                 1.0 if degraded else 0.0)
-        # ``publish``: the served sets, the pair ids and the frozensets,
+        # ``publish``: the served sets, the pair ids and the public sets,
         # from inside the lock to the result built outside it
         with contextlib.ExitStack() as publish:
             with self._lock:
@@ -737,14 +738,16 @@ class ResolutionService:
             return self._served_m
 
     @property
-    def pairs(self) -> FrozenSet[Pair]:
-        """Currently served blocked set as (lo, hi) eid tuples."""
-        return RES.packed_to_frozenset(self.packed_pairs)
+    def pairs(self) -> AbstractSet[Pair]:
+        """Currently served blocked set as (lo, hi) eid tuples (over a copy
+        of ``packed_pairs``, which its callers may write)."""
+        return RES.packed_to_frozenset(self.packed_pairs.copy())
 
     @property
-    def matches(self) -> FrozenSet[Pair]:
-        """Currently served matched set as (lo, hi) eid tuples."""
-        return RES.packed_to_frozenset(self.packed_matches)
+    def matches(self) -> AbstractSet[Pair]:
+        """Currently served matched set as (lo, hi) eid tuples (over a copy
+        of ``packed_matches``)."""
+        return RES.packed_to_frozenset(self.packed_matches.copy())
 
     def pair_id(self, pair: Pair) -> int:
         """Stable id of a pair the service has served at any point."""

@@ -45,8 +45,9 @@ store, and the union rides on ``StreamResult.passes``.
 from __future__ import annotations
 
 import time
+from collections.abc import Set as AbstractSet
 from dataclasses import dataclass, replace
-from typing import FrozenSet, Iterable, Optional, Set, Tuple
+from typing import Iterable, Optional, Set, Tuple
 
 import numpy as np
 
@@ -126,7 +127,7 @@ class StreamResult:
     under ``ERConfig.trace=True``; per-pass results share the owner's
     tracer and carry none of their own."""
     blocking: BlockingResult
-    matches: FrozenSet[Pair]
+    matches: AbstractSet[Pair]
     stream: StreamStats
     metrics: Optional[ERMetrics] = None
     passes: Tuple["StreamResult", ...] = ()
@@ -135,7 +136,7 @@ class StreamResult:
     trace: Optional[object] = None
 
     @property
-    def pairs(self) -> FrozenSet[Pair]:
+    def pairs(self) -> AbstractSet[Pair]:
         """The blocked (candidate) pair set — sugar for blocking.pairs."""
         return self.blocking.pairs
 
@@ -555,7 +556,7 @@ def _union_stream(results: Tuple[StreamResult, ...], cfg: ERConfig,
         auto_caps=any(x.auto_caps for x in rz))
     return StreamResult(
         blocking=blocking,
-        matches=frozenset().union(*(r.matches for r in results)),
+        matches=RES.PairSet().union(*(r.matches for r in results)),
         stream=stats, metrics=metrics, passes=results, pass_names=names,
         resilience=resilience)
 

@@ -17,8 +17,9 @@ pair set).
     trace_report.py``
   * the port's own spans and metrics (``PORT_ONLY_SPANS``,
     ``PORT_ONLY_METRICS``, dropped from every parity check and held
-    disjoint from the reference's): the public frozensets, the serve
-    batch's steps, a stream's spool and union, the merge's blocks and the
+    disjoint from the reference's): the public pair sets, the serve
+    batch's steps, a stream's spool and union, the merge's blocks, the
+    tuples the public sets box (``pairs_boxed``) and the
     collector's passes, whose ``gc.callbacks`` hook is installed only
     while a tracer is active and cannot deadlock the tracer
 """
@@ -75,8 +76,9 @@ def _chunks(ents, sz=150):
 PORT_ONLY_SPANS = frozenset({"frozensets", "gc", "index", "delta_pairs",
                              "set_algebra", "compact", "publish", "spool",
                              "union"})
-# metrics only the port records (the k-way merge's yielded blocks)
-PORT_ONLY_METRICS = frozenset({"merge_blocks"})
+# metrics only the port records (the k-way merge's yielded blocks, the
+# tuples its public pair sets yield when iterated)
+PORT_ONLY_METRICS = frozenset({"merge_blocks", "pairs_boxed"})
 
 
 def _edges(spans):
