@@ -277,20 +277,23 @@ def _rekeyed(ents: dict, spec) -> dict:
             "valid": ents["valid"], "payload": ents["payload"]}
 
 
-def union_blocking(results, cfg, runner_name: str) -> BlockingResult:
-    """Union BlockingResult across passes: pair union + additive accounting
-    (``load`` stays empty — per-pass shard loads live on the pass results).
-    ``results`` is any sequence of objects carrying ``.blocking``."""
-    union = PairSet().union(*(r.blocking.pairs for r in results))
-    return BlockingResult(
-        pairs=union, load=(),
-        overflow=sum(r.blocking.overflow for r in results),
-        variant=cfg.variant, runner=runner_name, window=cfg.window,
-        num_shards=results[0].blocking.num_shards,
-        cand_overflow=sum(r.blocking.cand_overflow for r in results),
-        matcher_evals=sum(r.blocking.matcher_evals for r in results),
-        pair_overflow=sum(r.blocking.pair_overflow for r in results),
-        pruned=sum(r.blocking.pruned for r in results))
+def union_passes(results, cfg):
+    """The union of a multi-pass run's pass results (any sequence of
+    objects carrying ``.blocking``, ``.matches`` and ``.resilience``):
+    ``(blocking, matches, resilience)``, the pairs unioned and the
+    accounting added up (``load`` stays empty — per-pass shard loads live
+    on the pass results)."""
+    b0 = results[0].blocking
+    total = lambda f: sum(getattr(r.blocking, f) for r in results)
+    blocking = BlockingResult(
+        pairs=PairSet().union(*(r.blocking.pairs for r in results)),
+        load=(), overflow=total("overflow"), variant=cfg.variant,
+        runner=b0.runner, window=cfg.window, num_shards=b0.num_shards,
+        cand_overflow=total("cand_overflow"),
+        matcher_evals=total("matcher_evals"),
+        pair_overflow=total("pair_overflow"), pruned=total("pruned"))
+    return (blocking, PairSet().union(*(r.matches for r in results)),
+            RZ.union_stats(r.resilience for r in results))
 
 
 def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds, mesh,
@@ -324,37 +327,29 @@ def _resolve_multipass(ents: dict, cfg: ERConfig, *, bounds, mesh,
                         balance=res.balance))
         results.append(res)
     results = tuple(results)
-    matches = PairSet().union(*(r.matches for r in results))
-    blocking = union_blocking(results, cfg, results[0].blocking.runner)
+    blocking, matches, resilience = union_passes(results, cfg)
     metrics = None
     if cfg.compute_metrics:
         metrics = compute_metrics(blocking.pairs, union_oracle,
                                   _total_comparisons(ents, cfg))
-    rz = [r.resilience for r in results if r.resilience is not None]
-    resilience = None if not rz else RZ.ResilienceStats(
-        policy=rz[0].policy,
-        retries=sum(x.retries for x in rz),
-        escalations=sum(x.escalations for x in rz),
-        cand_cap=max(x.cand_cap for x in rz),
-        pair_cap=max(x.pair_cap for x in rz),
-        auto_caps=any(x.auto_caps for x in rz))
     return MultiPassResult(passes=results,
                            pass_names=tuple(p.name for p in cfg.passes),
                            blocking=blocking, matches=matches,
                            metrics=metrics, resilience=resilience)
 
 
-def _untag_blocking(b: BlockingResult, offset: int) -> BlockingResult:
-    """A BlockingResult's pairs mapped from the merged linkage eid space
-    back to (lhs_eid, rhs_eid); every other field carried through."""
-    return _replace(b, pairs=frozenset(LK.untag_pairs(b.pairs, offset)))
-
-
-def _untag(res, offset: int):
-    """An ERResult or MultiPassResult with its blocked and matched pairs
-    mapped back to each source's id space."""
-    return _replace(res, blocking=_untag_blocking(res.blocking, offset),
-                    matches=frozenset(LK.untag_pairs(res.matches, offset)))
+def untag(res, offset: int):
+    """An ERResult, MultiPassResult or StreamResult with its blocked and
+    matched pairs, and its passes', mapped from the merged linkage eid
+    space back to (lhs_eid, rhs_eid); every other field carried through."""
+    back = lambda pairs: frozenset(LK.untag_pairs(pairs, offset))
+    res = _replace(res, blocking=_replace(res.blocking,
+                                          pairs=back(res.blocking.pairs)),
+                   matches=back(res.matches))
+    if getattr(res, "passes", ()):
+        res = _replace(res, passes=tuple(untag(p, offset)
+                                         for p in res.passes))
+    return res
 
 
 def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, mesh=None,
@@ -368,12 +363,8 @@ def link(lhs: dict, rhs: dict, cfg: ERConfig, *, bounds=None, mesh=None,
     cfg = cfg.with_(linkage=True)
     ents, offset = LK.tag_sources(E.to_device(lhs, device),
                                   E.to_device(rhs, device))
-    res = resolve(ents, cfg, bounds=bounds, mesh=mesh, axis=axis,
-                  device=device)
-    if isinstance(res, MultiPassResult):
-        res = _replace(res, passes=tuple(_untag(r, offset)
-                                         for r in res.passes))
-    return _untag(res, offset)
+    return untag(resolve(ents, cfg, bounds=bounds, mesh=mesh, axis=axis,
+                         device=device), offset)
 
 
 def serve(cfg: ERConfig, *, initial=None, device=None, **kwargs):

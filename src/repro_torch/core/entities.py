@@ -270,6 +270,23 @@ def host_concat(chunks) -> dict:
     }
 
 
+def host_pad(ents: dict, cap: int) -> dict:
+    """A host entity dict padded to exactly ``cap`` rows with invalid slots
+    whose keys sort past every real key (the fixed shape of a streamed
+    chunk's or a serve delta's shard program); ``cap == n`` returns
+    ``ents`` itself."""
+    pad = cap - int(ents["key"].shape[0])
+    if pad == 0:
+        return ents
+    z = lambda a: np.zeros((pad,) + a.shape[1:], a.dtype)
+    return host_concat([ents, {
+        "key": np.full((pad,), INVALID_KEY, np.int32),
+        "eid": z(ents["eid"]),
+        "valid": np.zeros((pad,), bool),
+        "payload": {k: z(v) for k, v in ents["payload"].items()},
+    }])
+
+
 def sort_chunk(ents, key=None) -> dict:
     """Sort one chunk by (key, eid) and return it as a host dict with
     invalid slots dropped.  ``key`` optionally overrides ``ents["key"]``."""

@@ -62,6 +62,20 @@ class ResilienceStats(NamedTuple):
     auto_caps: bool
 
 
+def union_stats(stats) -> Optional[ResilienceStats]:
+    """The ``ResilienceStats`` of a multi-pass run from its passes'
+    (``None`` entries skipped; ``None`` when no pass has any): retries and
+    escalations add up, the caps are the largest any pass kept."""
+    rz = [s for s in stats if s is not None]
+    return None if not rz else ResilienceStats(
+        policy=rz[0].policy,
+        retries=sum(x.retries for x in rz),
+        escalations=sum(x.escalations for x in rz),
+        cand_cap=max(x.cand_cap for x in rz),
+        pair_cap=max(x.pair_cap for x in rz),
+        auto_caps=any(x.auto_caps for x in rz))
+
+
 def _overflowed(out) -> bool:
     """Did any finite capacity truncate this outcome?"""
     return (int(out.overflow) > 0 or int(out.cand_overflow) > 0

@@ -146,23 +146,6 @@ def _splice(packed: np.ndarray, drop: np.ndarray,
     return np.insert(kept, at, add)
 
 
-def _pad(ents: dict, cap: int) -> dict:
-    """Pad a host entity dict to ``cap`` rows with invalid slots (the
-    stream's combined-chunk padding, applied to the region batch)."""
-    n = int(ents["key"].shape[0])
-    if n == cap:
-        return ents
-    pad = cap - n
-    z = lambda a: np.zeros((pad,) + a.shape[1:], a.dtype)
-    tail = {
-        "key": np.full((pad,), int(E.INVALID_KEY), np.int32),
-        "eid": z(ents["eid"]),
-        "valid": np.zeros((pad,), bool),
-        "payload": {k: z(v) for k, v in ents["payload"].items()},
-    }
-    return E.host_concat([ents, tail])
-
-
 def _diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return RES.setdiff_sorted(a, b) if a.shape[0] else _EMPTY
 
@@ -253,15 +236,13 @@ class DeltaMatcher:
             cap_b = self.cap_floor
             while cap_b < need:
                 cap_b *= 2
-            padded = _pad(E.host_concat(group), r_b * cap_b)
+            padded = E.host_pad(E.host_concat(group), r_b * cap_b)
             dest = np.zeros(r_b * cap_b, np.int32)
             dest[:sum(int(reg["key"].shape[0]) for reg in group)] = \
                 np.concatenate([np.full(int(reg["key"].shape[0]), i,
                                         np.int32)
                                 for i, reg in enumerate(group)])
-            dev = E.make_entities(padded["key"], padded["eid"],
-                                  payload=padded["payload"],
-                                  valid=padded["valid"], device=self.device)
+            dev = E.from_numpy(padded, self.device)
             plan = B.ShardPlan(partitioner="serve-delta", num_shards=r_b,
                                bounds=np.zeros(max(r_b - 1, 0), np.int32),
                                dest=dest, cap_link=None, rank_granular=True)

@@ -418,15 +418,8 @@ class ResolutionService:
         # anything still queued raced the shutdown (enqueued after the
         # stop sentinel or after a failure drain): fail it on the way out
         # so no future can dangle behind the worker's exit
-        exc = self._failure if self._failure is not None \
-            else RuntimeError("service is closed")
-        while True:
-            try:
-                nxt = self._q.get_nowait()
-            except queue.Empty:
-                break
-            if nxt is not _STOP:
-                self._settle(nxt.future, exc=exc)
+        self._fail_queued(self._failure if self._failure is not None
+                          else RuntimeError("service is closed"))
 
     def _next_request(self):
         """Blocking queue get, interleaving the background repair pass:
@@ -535,11 +528,16 @@ class ResolutionService:
         self._closed = True
         for r in group:
             self._settle(r.future, exc=exc)
-        while True:              # queued requests must not hang forever
+        self._fail_queued(exc)   # queued requests must not hang forever
+
+    def _fail_queued(self, exc: BaseException) -> None:
+        """Empty the queue, failing every waiting request's future with
+        ``exc`` (a stop sentinel in it is dropped)."""
+        while True:
             try:
                 nxt = self._q.get_nowait()
             except queue.Empty:
-                break
+                return
             if nxt is not _STOP:
                 self._settle(nxt.future, exc=exc)
 
@@ -586,9 +584,7 @@ class ResolutionService:
                 if kind == "insert":
                     h = group[0].data if len(group) == 1 else \
                         E.host_concat([r.data for r in group])
-                    dev = E.make_entities(h["key"], h["eid"],
-                                          payload=h["payload"],
-                                          valid=h["valid"], device=self.device)
+                    dev = E.from_numpy(h, self.device)
                     nb, nm, dstats = self._delta.insert(dev, self._blocked,
                                                         self._matched,
                                                         degraded=degraded)
@@ -620,12 +616,12 @@ class ResolutionService:
                 publish.enter_context(OBS.span(
                     "publish", full_diff=not self._boundary_complete))
                 old_sb, old_sm = self._served_b, self._served_m
+                self._served_b, self._served_m = self._served_sets(nb, nm)
                 if self._boundary_complete:
                     # served = maintained before and after the batch, so
                     # the batch's edit is the served edit: what it removed
                     # left the set, and what it added joined it unless
                     # it was there already
-                    self._served_b, self._served_m = nb, nm
                     new_p = RES.setdiff_sorted(dstats.added_blocked, old_sb)
                     gone_p = dstats.removed_blocked
                     new_m = RES.setdiff_sorted(dstats.added_matched, old_sm)
@@ -633,9 +629,6 @@ class ResolutionService:
                 else:
                     # the straddle filter moves pairs the batch never
                     # touched: diff the whole served sets
-                    straddle = srp_straddle_packed(self.index, self.cfg)
-                    self._served_b = RES.setdiff_sorted(nb, straddle)
-                    self._served_m = RES.setdiff_sorted(nm, straddle)
                     new_p = RES.setdiff_sorted(self._served_b, old_sb)
                     gone_p = RES.setdiff_sorted(old_sb, self._served_b)
                     new_m = RES.setdiff_sorted(self._served_m, old_sm)
@@ -661,6 +654,17 @@ class ResolutionService:
                 retired_matches=RES.packed_to_frozenset(gone_m),
                 pair_ids=ids, batched=len(group), stats=stats,
                 degraded=dstats.degraded)
+
+    def _served_sets(self, nb: np.ndarray, nm: np.ndarray):
+        """The served (blocked, matched) sets derived from maintained
+        complete sets ``nb``/``nm`` under the current index: the maintained
+        sets themselves for boundary-complete variants, and for SRP the
+        complete sets minus the pairs that straddle a partition."""
+        if self._boundary_complete:
+            return nb, nm
+        straddle = srp_straddle_packed(self.index, self.cfg)
+        return (RES.setdiff_sorted(nb, straddle),
+                RES.setdiff_sorted(nm, straddle))
 
     # -- brownout repair -----------------------------------------------------
 
@@ -711,12 +715,7 @@ class ResolutionService:
         self._repairs += 1
         if self._tracer is not None:
             self._tracer.metrics.counter("repairs").inc()
-        if self._boundary_complete:
-            self._served_b, self._served_m = nb, nm
-        else:
-            straddle = srp_straddle_packed(self.index, self.cfg)
-            self._served_b = RES.setdiff_sorted(nb, straddle)
-            self._served_m = RES.setdiff_sorted(nm, straddle)
+        self._served_b, self._served_m = self._served_sets(nb, nm)
         # the blocked set never degrades, so repair cannot mint pairs the
         # id table has not seen — guard anyway so ids stay total
         for packed in dstats.added_blocked.tolist():
@@ -893,15 +892,9 @@ class ResolutionService:
         self._closed = True
         if self._worker is not None:
             if not drain:
-                err = RuntimeError("service closed with drain=False before "
-                                   "this request was processed")
-                while True:
-                    try:
-                        nxt = self._q.get_nowait()
-                    except queue.Empty:
-                        break
-                    if nxt is not _STOP:
-                        self._settle(nxt.future, exc=err)
+                self._fail_queued(RuntimeError(
+                    "service closed with drain=False before this request "
+                    "was processed"))
             try:
                 self._q.put_nowait(_STOP)
             except queue.Full:
@@ -916,13 +909,7 @@ class ResolutionService:
                     f"still busy; queued requests were abandoned")
                 if self._failure is None:
                     self._failure = exc
-                while True:
-                    try:
-                        nxt = self._q.get_nowait()
-                    except queue.Empty:
-                        break
-                    if nxt is not _STOP:
-                        self._settle(nxt.future, exc=exc)
+                self._fail_queued(exc)
                 try:        # the drained queue has room for the sentinel
                     self._q.put_nowait(_STOP)   # now: a later-recovering
                 except queue.Full:              # worker still stops

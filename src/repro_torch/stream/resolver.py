@@ -44,9 +44,10 @@ store, and the union rides on ``StreamResult.passes``.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from collections.abc import Set as AbstractSet
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Iterable, Optional, Set, Tuple
 
 import numpy as np
@@ -141,66 +142,162 @@ class StreamResult:
         return self.blocking.pairs
 
 
-def _valid_host(ents) -> dict:
-    """One input chunk as a host dict with its invalid slots stripped."""
-    h = E.to_host(ents)
-    valid = np.asarray(h["valid"], bool)
-    if not valid.all():        # all-valid chunks skip the mask copy
-        h = E.host_take(h, valid)
-    return h
+@dataclass
+class _PassTally:
+    """The accumulators of one streamed pass under the names of its
+    checkpoint manifest: the global rank the next chunk starts at, the
+    chunk and cache counts, the runner's counters and the ladder's.
+    Every resolved chunk folds in through ``add``; ``state()`` is what a
+    chunk commits, ``from_state`` what a resumed pass restarts from, and
+    the pass's result records are read off it."""
+    load_max: np.ndarray      # per shard: the max over chunks
+    cand_max: np.ndarray
+    rank_offset: int = 0
+    chunks: int = 0
+    carry_total: int = 0
+    degenerate: int = 0
+    steady: int = 0
+    hits: int = 0
+    misses: int = 0
+    traces: int = 0
+    overflow: int = 0
+    cand_overflow: int = 0
+    matcher_evals: int = 0
+    pair_overflow: int = 0
+    pruned: int = 0
+    retries: int = 0
+    escalations: int = 0
+    device_bytes: int = 0     # the max over chunks
+
+    MAXIMA = ("load_max", "cand_max")
+    # the runner's counters, added up chunk by chunk
+    OUTCOME = ("overflow", "cand_overflow", "matcher_evals",
+               "pair_overflow", "pruned")
+
+    @classmethod
+    def from_state(cls, state: Optional[dict], r: int) -> "_PassTally":
+        """The tally a pass manifest's ``state`` committed, or a fresh one
+        for ``r`` shards when nothing was (``state`` None).  Manifests
+        written before evidence pruning carry no ``pruned``."""
+        t = cls(np.zeros(r, np.int64), np.zeros(r, np.int64))
+        if state is None:
+            return t
+        for f in fields(cls):
+            v = state.get(f.name, 0) if f.name == "pruned" \
+                else state[f.name]
+            if f.name not in cls.MAXIMA:
+                setattr(t, f.name, v)
+            elif v:        # empty until the first chunk commits
+                setattr(t, f.name, np.asarray(v, np.int64))
+        return t
+
+    def state(self) -> dict:
+        """The checkpoint form: every counter a Python int, each per-shard
+        maximum a list of ints."""
+        return {f.name: [int(x) for x in getattr(self, f.name)]
+                if f.name in self.MAXIMA else int(getattr(self, f.name))
+                for f in fields(self)}
+
+    def add(self, po, cache_delta, *, degen: bool, n_nat: int,
+            n_carry: int, retries: int, escalations: int,
+            nbytes: int) -> None:
+        """Fold one resolved chunk: its ``PackedOutcome``, the executable
+        cache's (hits, misses, traces) over it, whether its plan
+        collapsed, its native and carried rows, the ladder's retries and
+        escalations, and the bytes it staged on the device."""
+        dh, dm, dt = cache_delta
+        self.rank_offset += n_nat
+        self.chunks += 1
+        self.carry_total += n_carry
+        self.degenerate += int(degen)
+        self.steady += int(dh > 0 and dm == 0 and dt == 0)
+        self.hits += dh
+        self.misses += dm
+        self.traces += dt
+        for f in self.OUTCOME:
+            setattr(self, f, getattr(self, f) + getattr(po, f))
+        self.retries += retries
+        self.escalations += escalations
+        self.device_bytes = max(self.device_bytes, nbytes)
+        self.load_max = np.maximum(self.load_max,
+                                   np.asarray(po.load, np.int64))
+        if po.cand_count:
+            self.cand_max = np.maximum(self.cand_max,
+                                       np.asarray(po.cand_count, np.int64))
+
+    def blocking(self, pairs, cfg: ERConfig, runner) -> BlockingResult:
+        return BlockingResult(
+            pairs=pairs, load=tuple(int(x) for x in self.load_max),
+            variant=cfg.variant, runner=runner.name, window=cfg.window,
+            num_shards=runner.shards,
+            cand_count=tuple(int(x) for x in self.cand_max),
+            **{f: getattr(self, f) for f in self.OUTCOME})
+
+    def stream_stats(self, chunk_size: int, runs: ChunkStore) -> StreamStats:
+        # this pass's own spool only (its sorted runs); the shared raw
+        # store is stamped ONCE at the top level — summing per-pass stats
+        # must not multiply it by the pass count
+        return StreamStats(
+            chunks=self.chunks, chunk_size=chunk_size,
+            entities=self.rank_offset, runs=len(runs),
+            carry_entities=self.carry_total,
+            degenerate_chunks=self.degenerate, steady_chunks=self.steady,
+            cache_hits=self.hits, cache_misses=self.misses,
+            traces=self.traces, spooled_bytes=runs.spooled_bytes,
+            chunk_device_bytes=self.device_bytes, corpus_bytes=0)
+
+    def resilience(self, run_cfg: ERConfig,
+                   auto_caps: bool) -> RZ.ResilienceStats:
+        """``run_cfg``: the config of the last chunk's kept execution
+        (the ladder's escalated caps are sticky across chunks)."""
+        return RZ.ResilienceStats(
+            policy=run_cfg.on_overflow, retries=self.retries,
+            escalations=self.escalations, cand_cap=run_cfg.cand_cap or 0,
+            pair_cap=run_cfg.pair_cap or 0, auto_caps=auto_caps)
 
 
-def _ingest(chunks: Iterable[dict], spool_dir: Optional[str], *,
-            store: Optional[ChunkStore] = None, transform=None):
+def _ingest(chunks: Iterable[dict], store: ChunkStore, *, transform=None,
+            ckpt=None) -> Tuple[int, int, int]:
     """Consume the chunk iterator once: strip invalid slots, move to host,
     apply the optional per-chunk ``transform`` (``link_stream``'s source
-    tagging), spool.  Returns (store, max_chunk_rows, total_rows,
-    corpus_bytes); pass ``store`` to keep appending to an existing spool
-    (counters restart — callers accumulate)."""
-    store = store if store is not None else ChunkStore(spool_dir,
-                                                       prefix="raw")
-    max_len = total = nbytes = 0
+    tagging) and append each non-empty chunk to ``store``.  Returns
+    (max_chunk_rows, total_rows, corpus_bytes).
+
+    With ``ckpt`` the totals start at the checkpoint's committed ones and
+    are committed after every append; a resumed run re-supplies the SAME
+    deterministic iterator, whose first ``ingest.chunks`` non-empty chunks
+    are skipped — they are already durable."""
+    skip = max_len = total = nbytes = 0
+    if ckpt is not None:
+        ing = ckpt.ingest
+        skip, max_len = ing["chunks"], ing["max_len"]
+        total, nbytes = ing["total"], ing["nbytes"]
+    seen = 0
     for ents in chunks:
-        h = _valid_host(ents)
+        h = E.to_host(ents)
+        valid = np.asarray(h["valid"], bool)
+        if not valid.all():        # all-valid chunks skip the mask copy
+            h = E.host_take(h, valid)
         if int(h["key"].shape[0]) == 0:
             continue
+        seen += 1
+        if seen <= skip:
+            continue         # durably committed by the previous run
         if transform is not None:
             h = transform(h)
         max_len = max(max_len, int(h["key"].shape[0]))
         total += int(h["key"].shape[0])
         nbytes += _entity_bytes(h)
         store.append(h)
-    return store, max_len, total, nbytes
+        if ckpt is not None:
+            ckpt.commit_raw(max_len, total, nbytes)
+    return max_len, total, nbytes
 
 
 def _entity_bytes(h: dict) -> int:
     """Total bytes of one host entity dict (key/eid/valid + payload)."""
     return (h["key"].nbytes + h["eid"].nbytes + h["valid"].nbytes
             + sum(v.nbytes for v in h["payload"].values()))
-
-
-def _host_pad(ents: dict, cap: int) -> dict:
-    """Pad a host entity dict to exactly ``cap`` rows with invalid slots
-    (keys pushed past every real key) — the fixed combined-chunk shape of
-    every streamed shard program."""
-    n = int(ents["key"].shape[0])
-    if n == cap:
-        return ents
-    pad = cap - n
-    z = lambda a: np.zeros((pad,) + a.shape[1:], a.dtype)
-    tail = {
-        "key": np.full((pad,), int(E.INVALID_KEY), np.int32),
-        "eid": z(ents["eid"]),
-        "valid": np.zeros((pad,), bool),
-        "payload": {k: z(v) for k, v in ents["payload"].items()},
-    }
-    return E.host_concat([ents, tail])
-
-
-def _device_entities(h: dict, device) -> dict:
-    """A host entity dict as port tensors on ``device``."""
-    return E.make_entities(h["key"], h["eid"], payload=h["payload"],
-                           valid=h["valid"], device=device)
 
 
 def _sorted_runs(raw: ChunkStore, spec, window: int,
@@ -217,7 +314,7 @@ def _sorted_runs(raw: ChunkStore, spec, window: int,
                           prefix="run")
     profile = B.KeyProfile.empty(window)
     for h in raw:
-        dev = _device_entities(h, device)
+        dev = E.from_numpy(h, device)
         key = None if spec is None else K.derive_sort_key(dev, spec)
         run = E.sort_chunk(dev, key=key)
         profile = profile.merge(B.profile_keys(run["key"], window=window))
@@ -269,266 +366,181 @@ def _stream_pass(raw: ChunkStore, cfg: ERConfig, spec, chunk_size: int,
 
     With ``ckpt`` (a ``resilience.StreamCheckpoint``) the pass is durable:
     sorted runs + profile commit once, then every resolved chunk commits
-    its pair spool, seam halo, and accumulators — and a pass whose
-    manifest already records progress FAST-FORWARDS: committed chunks are
-    skipped in the (deterministic) merged stream, their pairs reloaded
-    from the spool, the carry/rank/counters restored.  ``fault`` is the
-    test-only ``FaultPlan`` crash injector."""
+    its pair spool, seam halo, and tally — and a pass whose manifest
+    already records progress FAST-FORWARDS: committed chunks are skipped
+    in the (deterministic) merged stream, their pairs reloaded from the
+    spool, the carry and tally restored.  ``fault`` is the test-only
+    ``FaultPlan`` crash injector."""
     with OBS.span("pass", name=label, variant=cfg.variant):
-        return _stream_pass_body(raw, cfg, spec, chunk_size, runner,
-                                 spool_dir, label, total_comparisons,
-                                 device, ckpt=ckpt, fault=fault)
-
-
-def _stream_pass_body(raw: ChunkStore, cfg: ERConfig, spec,
-                      chunk_size: int, runner, spool_dir: Optional[str],
-                      label: str, total_comparisons: int, device, *,
-                      ckpt=None, fault=None):
-    """``_stream_pass`` proper (the wrapper above only opens the pass's
-    span so every phase below nests under it)."""
-    w_base = cfg.window
-    if cfg.window_policy == "adaptive":
-        # the facade's adaptive rewrite: the band (and every derived width
-        # — seam carry, combined_cap, halo validation) runs at window_max;
-        # per-chunk weff comes from the MERGED profile, whose per-key
-        # counts are exactly the monolithic corpus's
-        cfg = cfg.with_(window=cfg.window_max)
-    w, r = cfg.window, runner.shards
-    variant = get_variant(cfg.variant)
-    with OBS.span("sort_runs"):
-        if ckpt is not None:
-            runs, sorted_done = ckpt.runs_store(label)
-            if sorted_done:
-                profile = ckpt.load_profile(label)
-            else:
-                runs, profile = _sorted_runs(raw, spec, w, None, label,
-                                             device, runs=runs)
-                ckpt.commit_sorted(label, runs, profile)
-        else:
-            runs, profile = _sorted_runs(raw, spec, w, spool_dir, label,
-                                         device)
-    with OBS.span("plan", partitioner=cfg.partitioner, n=profile.n):
-        gplan = B.plan_from_profile(profile, cfg.partitioner, r)
-        # config-level feasibility is judged ONCE, against the global
-        # plan — exactly what the monolithic facade would reject
-        B.validate_plan(gplan, cfg, profile.n)
-
-        combined_cap = (w - 1) + chunk_size
-        # unset (None) caps resolve from the merged profile's planned
-        # loads — floored at the combined chunk width, since a degenerate
-        # (collapsed) chunk puts the whole [halo | chunk] window on one
-        # shard
-        cfg, auto_caps = RZ.autosize_caps(cfg, plan=gplan, profile=profile,
-                                          r=r, floor_load=combined_cap)
-    cache = PC.executable_cache()
-    blocked_parts, matched_parts = [], []
-    load_max = np.zeros(r, np.int64)
-    cand_max = np.zeros(r, np.int64)
-    overflow = cand_overflow = matcher_evals = pair_overflow = 0
-    pruned = 0
-    chunks = steady = degenerate = carry_total = 0
-    hits = misses = traces = 0
-    retries = escalations = 0
-    device_bytes = 0
-    oracle: Optional[Set[Pair]] = set() if cfg.compute_metrics else None
-
-    carry: Optional[dict] = None
-    rank_offset = 0
-    completed = 0
-    state = ckpt.pass_state(label) if ckpt is not None else None
-    if state is not None and state["completed_chunks"] > 0:
-        completed = state["completed_chunks"]
-        for i in range(completed):
-            bl, ma = ckpt.load_pairs(label, i)
-            blocked_parts.append(bl)
-            matched_parts.append(ma)
-        carry = ckpt.load_carry(label)
-        rank_offset = state["rank_offset"]
-        chunks, carry_total = state["chunks"], state["carry_total"]
-        degenerate, steady = state["degenerate"], state["steady"]
-        hits, misses = state["hits"], state["misses"]
-        traces = state["traces"]
-        overflow = state["overflow"]
-        cand_overflow = state["cand_overflow"]
-        matcher_evals = state["matcher_evals"]
-        pair_overflow = state["pair_overflow"]
-        pruned = state.get("pruned", 0)
-        retries, escalations = state["retries"], state["escalations"]
-        device_bytes = state["device_bytes"]
-        if state["load_max"]:
-            load_max = np.asarray(state["load_max"], np.int64)
-        if state["cand_max"]:
-            cand_max = np.asarray(state["cand_max"], np.int64)
-
-    # the ladder's escalated caps are STICKY across chunks: once one chunk
-    # forced a doubling, later chunks start at the doubled shape instead
-    # of re-climbing the ladder per chunk
-    run_cfg = cfg
-    ci = -1
-    # the merge is pulled through ``next`` by hand (rather than a plain
-    # ``for``) so the k-way merge's own time lands in ``merge`` spans,
-    # separate from the ``chunk`` resolve spans it feeds
-    merged = iter(rechunk(merged_blocks(runs, chunk_size), chunk_size))
-    while True:
-        with OBS.span("merge"):
-            native = next(merged, None)
-        if native is None:
-            break
-        ci += 1
-        if ci < completed:
-            continue   # fast-forward: committed by a previous (killed) run
-        csp = OBS.span("chunk", index=ci)
-        with csp:
-            n_nat = int(native["key"].shape[0])
-            combined = native if carry is None else \
-                E.host_concat([carry, native])
-            n_comb = int(combined["key"].shape[0])
-            n_carry = n_comb - n_nat
-            padded = _host_pad(combined, combined_cap)
-            if cfg.window_policy == "adaptive":
-                # weff rides only the per-chunk PADDED COPY — the carry
-                # (and its checkpointed form) keeps the raw payload
-                # schema, so host_concat sees matching fields every chunk
-                padded = dict(padded, payload=dict(
-                    padded["payload"],
-                    _weff=QA.weff_for_keys(np.asarray(padded["key"]),
-                                           profile, w_base, w)))
-            dev = _device_entities(padded, device)
-            ranks = np.arange(rank_offset - n_carry, rank_offset + n_nat,
-                              dtype=np.int64)
-            plan, degen = _chunk_plan(cfg, variant, gplan, dev, padded,
-                                      ranks, r)
-            if csp.enabled:
-                csp.set(natives=n_nat, carry=n_carry,
-                        degenerate=bool(degen))
-                OBS.current_tracer().metrics.counter(
-                    "carry_entities").inc(n_carry)
-
-            before = cache.stats.snapshot()
-            po, run_cfg, rt, esc = RZ.run_with_recovery(
-                lambda c, attempt: runner.resolve_packed(dev, plan, c),
-                run_cfg)
-            retries, escalations = retries + rt, escalations + esc
-            dh, dm, dt = cache.stats.delta(before)
-            hits, misses, traces = hits + dh, misses + dm, traces + dt
-            steady += int(dh > 0 and dm == 0 and dt == 0)
-            degenerate += int(degen)
-
-            blocked_parts.append(po.blocked)
-            matched_parts.append(po.matched)
-            load_max = np.maximum(load_max, np.asarray(po.load, np.int64))
-            if po.cand_count:
-                cand_max = np.maximum(cand_max,
-                                      np.asarray(po.cand_count, np.int64))
-            overflow += po.overflow
-            cand_overflow += po.cand_overflow
-            matcher_evals += po.matcher_evals
-            pair_overflow += po.pair_overflow
-            pruned += po.pruned
-            device_bytes = max(device_bytes,
-                               _entity_bytes(padded) + 4 * combined_cap)
-
-            if oracle is not None:
-                # the FULL sequential-SN oracle, accumulated chunk-wise
-                # (each combined slice is contiguous in the global order,
-                # so chunk oracles union to the global one) — deliberately
-                # NOT the variant-faithful set: the metric must EXPOSE
-                # SRP's missed boundary pairs, not absolve them
-                if cfg.window_policy == "adaptive":
-                    cw = QA.weff_for_keys(np.asarray(combined["key"]),
-                                          profile, w_base, w)
-                    pairs = sn.adaptive_sn_pairs(combined["key"],
-                                                 combined["eid"], cw)
-                else:
-                    pairs = sn.sequential_sn_pairs(combined["key"],
-                                                   combined["eid"], w)
-                if cfg.linkage and "src" in combined["payload"]:
-                    pairs = LK.filter_cross_source(
-                        pairs, combined["eid"], combined["payload"]["src"])
-                oracle |= pairs
-
-            chunks += 1
-            carry_total += n_carry
-            keep = min(w - 1, n_comb)
-            carry = E.host_take(combined, slice(n_comb - keep, n_comb))
-            rank_offset += n_nat
-
+        w_base = cfg.window
+        if cfg.window_policy == "adaptive":
+            # the facade's adaptive rewrite: the band (and every derived
+            # width — seam carry, combined_cap, halo validation) runs at
+            # window_max; per-chunk weff comes from the MERGED profile,
+            # whose per-key counts are exactly the monolithic corpus's
+            cfg = cfg.with_(window=cfg.window_max)
+        w, r = cfg.window, runner.shards
+        variant = get_variant(cfg.variant)
+        with OBS.span("sort_runs"):
             if ckpt is not None:
-                # commit protocol (checkpoint module doc): pair spool,
-                # then seam halo + manifest — the manifest write is the
-                # commit point
-                t0 = time.perf_counter()
-                sp = OBS.span("checkpoint_commit", chunk=ci)
-                with sp:
-                    ckpt.spool_chunk(label, ci, po.blocked, po.matched)
-                    if fault is not None:
-                        fault.before_commit(label, ci)
-                    ckpt.commit_chunk(
-                        label, carry, rank_offset=rank_offset,
-                        chunks=chunks, carry_total=carry_total,
-                        degenerate=degenerate, steady=steady, hits=hits,
-                        misses=misses, traces=traces,
-                        overflow=int(overflow),
-                        cand_overflow=int(cand_overflow),
-                        matcher_evals=int(matcher_evals),
-                        pair_overflow=int(pair_overflow),
-                        pruned=int(pruned),
-                        retries=retries, escalations=escalations,
-                        device_bytes=int(device_bytes),
-                        load_max=[int(x) for x in load_max],
-                        cand_max=[int(x) for x in cand_max])
-                if sp.enabled:
-                    OBS.current_tracer().metrics.histogram(
-                        "checkpoint_commit_ms").observe(
-                            1e3 * (time.perf_counter() - t0))
-                if fault is not None:
-                    fault.after_commit(label, ci)
+                runs, sorted_done = ckpt.runs_store(label)
+                if sorted_done:
+                    profile = ckpt.load_profile(label)
+                else:
+                    runs, profile = _sorted_runs(raw, spec, w, None, label,
+                                                 device, runs=runs)
+                    ckpt.commit_sorted(label, runs, profile)
+            else:
+                runs, profile = _sorted_runs(raw, spec, w, spool_dir,
+                                             label, device)
+        with OBS.span("plan", partitioner=cfg.partitioner, n=profile.n):
+            gplan = B.plan_from_profile(profile, cfg.partitioner, r)
+            # config-level feasibility is judged ONCE, against the global
+            # plan — exactly what the monolithic facade would reject
+            B.validate_plan(gplan, cfg, profile.n)
 
-    # one sort-dedup (``unique_packed``), not ``np.unique``: newer numpy
-    # hashes there, 15-22 s on 12.6M pairs (PERF.md)
-    dedup = lambda parts: RES.unique_packed(np.concatenate(parts)) \
-        if parts else np.empty((0,), RES.PACKED_DTYPE)
-    with OBS.span("union", chunks=len(blocked_parts)):
-        blocked = dedup(blocked_parts)
-        matched = dedup(matched_parts)
-    blocking = BlockingResult(
-        pairs=RES.packed_to_frozenset(blocked),
-        load=tuple(int(x) for x in load_max), overflow=overflow,
-        variant=cfg.variant, runner=runner.name, window=w, num_shards=r,
-        cand_count=tuple(int(x) for x in cand_max),
-        cand_overflow=cand_overflow, matcher_evals=matcher_evals,
-        pair_overflow=pair_overflow, pruned=pruned)
-    metrics = None
-    if oracle is not None:
-        metrics = compute_metrics(blocking.pairs, oracle, total_comparisons)
-    stats = StreamStats(
-        chunks=chunks, chunk_size=chunk_size, entities=rank_offset,
-        runs=len(runs), carry_entities=carry_total,
-        degenerate_chunks=degenerate, steady_chunks=steady,
-        cache_hits=hits, cache_misses=misses, traces=traces,
-        # this pass's own spool only (its sorted runs); the shared raw
-        # store is stamped ONCE at the top level — summing per-pass stats
-        # must not multiply it by the pass count
-        spooled_bytes=runs.spooled_bytes,
-        chunk_device_bytes=device_bytes, corpus_bytes=0)
-    resilience = RZ.ResilienceStats(
-        policy=cfg.on_overflow, retries=retries, escalations=escalations,
-        cand_cap=run_cfg.cand_cap or 0, pair_cap=run_cfg.pair_cap or 0,
-        auto_caps=auto_caps)
-    if ckpt is not None:
-        ckpt.mark_pass_done(label)
-    return StreamResult(
-        blocking=blocking, matches=RES.packed_to_frozenset(matched),
-        stream=stats, metrics=metrics, resilience=resilience), oracle
+            combined_cap = (w - 1) + chunk_size
+            # unset (None) caps resolve from the merged profile's planned
+            # loads — floored at the combined chunk width, since a
+            # degenerate (collapsed) chunk puts the whole [halo | chunk]
+            # window on one shard
+            cfg, auto_caps = RZ.autosize_caps(
+                cfg, plan=gplan, profile=profile, r=r,
+                floor_load=combined_cap)
+        cache = PC.executable_cache()
+        oracle: Optional[Set[Pair]] = set() if cfg.compute_metrics \
+            else None
+        state = ckpt.pass_state(label) if ckpt is not None else None
+        completed = state["completed_chunks"] if state is not None else 0
+        tally = _PassTally.from_state(state if completed else None, r)
+        parts = [ckpt.load_pairs(label, i) for i in range(completed)]
+        carry: Optional[dict] = ckpt.load_carry(label) if completed \
+            else None
+
+        # the ladder's escalated caps are STICKY across chunks: once one
+        # chunk forced a doubling, later chunks start at the doubled shape
+        # instead of re-climbing the ladder per chunk
+        run_cfg = cfg
+        # the merge is pulled through ``next`` by hand (rather than a
+        # plain ``for``) so the k-way merge's own time lands in ``merge``
+        # spans, separate from the ``chunk`` resolve spans it feeds
+        merged = iter(rechunk(merged_blocks(runs, chunk_size), chunk_size))
+        for ci in itertools.count():
+            with OBS.span("merge"):
+                native = next(merged, None)
+            if native is None:
+                break
+            if ci < completed:
+                continue   # fast-forward: committed by a previous run
+            csp = OBS.span("chunk", index=ci)
+            with csp:
+                n_nat = int(native["key"].shape[0])
+                combined = native if carry is None else \
+                    E.host_concat([carry, native])
+                n_comb = int(combined["key"].shape[0])
+                n_carry = n_comb - n_nat
+                padded = E.host_pad(combined, combined_cap)
+                if cfg.window_policy == "adaptive":
+                    # weff rides only the per-chunk PADDED COPY — the
+                    # carry (and its checkpointed form) keeps the raw
+                    # payload schema, so host_concat sees matching fields
+                    # every chunk
+                    padded = dict(padded, payload=dict(
+                        padded["payload"],
+                        _weff=QA.weff_for_keys(np.asarray(padded["key"]),
+                                               profile, w_base, w)))
+                dev = E.from_numpy(padded, device)
+                ranks = np.arange(tally.rank_offset - n_carry,
+                                  tally.rank_offset + n_nat, dtype=np.int64)
+                plan, degen = _chunk_plan(cfg, variant, gplan, dev, padded,
+                                          ranks, r)
+                if csp.enabled:
+                    csp.set(natives=n_nat, carry=n_carry,
+                            degenerate=bool(degen))
+                    OBS.current_tracer().metrics.counter(
+                        "carry_entities").inc(n_carry)
+
+                before = cache.stats.snapshot()
+                po, run_cfg, rt, esc = RZ.run_with_recovery(
+                    lambda c, attempt: runner.resolve_packed(dev, plan, c),
+                    run_cfg)
+                tally.add(po, cache.stats.delta(before), degen=degen,
+                          n_nat=n_nat, n_carry=n_carry, retries=rt,
+                          escalations=esc,
+                          nbytes=_entity_bytes(padded) + 4 * combined_cap)
+                parts.append((po.blocked, po.matched))
+                if oracle is not None:
+                    oracle |= _chunk_oracle(combined, cfg, profile, w_base)
+                keep = min(w - 1, n_comb)
+                carry = E.host_take(combined, slice(n_comb - keep, n_comb))
+                if ckpt is not None:
+                    _commit_chunk(ckpt, fault, label, ci, po, carry, tally)
+
+        # one sort-dedup (``unique_packed``), not ``np.unique``: newer
+        # numpy hashes there, 15-22 s on 12.6M pairs (PERF.md)
+        dedup = lambda arrs: RES.unique_packed(np.concatenate(arrs)) \
+            if arrs else np.empty((0,), RES.PACKED_DTYPE)
+        with OBS.span("union", chunks=len(parts)):
+            blocked = dedup([b for b, _ in parts])
+            matched = dedup([m for _, m in parts])
+        blocking = tally.blocking(RES.packed_to_frozenset(blocked), cfg,
+                                  runner)
+        metrics = None if oracle is None else \
+            compute_metrics(blocking.pairs, oracle, total_comparisons)
+        if ckpt is not None:
+            ckpt.mark_pass_done(label)
+        return StreamResult(
+            blocking=blocking, matches=RES.packed_to_frozenset(matched),
+            stream=tally.stream_stats(chunk_size, runs), metrics=metrics,
+            resilience=tally.resilience(run_cfg, auto_caps)), oracle
+
+
+def _chunk_oracle(combined: dict, cfg: ERConfig, profile,
+                  w_base: int) -> Set[Pair]:
+    """The FULL sequential-SN oracle of one combined [carry | chunk] slice.
+    Each slice is contiguous in the global order, so chunk oracles union
+    to the global one — deliberately NOT the variant-faithful set: the
+    metric must EXPOSE SRP's missed boundary pairs, not absolve them."""
+    if cfg.window_policy == "adaptive":
+        cw = QA.weff_for_keys(np.asarray(combined["key"]), profile, w_base,
+                              cfg.window)
+        pairs = sn.adaptive_sn_pairs(combined["key"], combined["eid"], cw)
+    else:
+        pairs = sn.sequential_sn_pairs(combined["key"], combined["eid"],
+                                       cfg.window)
+    if cfg.linkage and "src" in combined["payload"]:
+        pairs = LK.filter_cross_source(pairs, combined["eid"],
+                                       combined["payload"]["src"])
+    return pairs
+
+
+def _commit_chunk(ckpt, fault, label: str, ci: int, po, carry: dict,
+                  tally: _PassTally) -> None:
+    """Commit resolved chunk ``ci`` (checkpoint module doc): its pair
+    spool, then the seam halo and the tally in the manifest — the
+    manifest write is the commit point."""
+    t0 = time.perf_counter()
+    sp = OBS.span("checkpoint_commit", chunk=ci)
+    with sp:
+        ckpt.spool_chunk(label, ci, po.blocked, po.matched)
+        if fault is not None:
+            fault.before_commit(label, ci)
+        ckpt.commit_chunk(label, carry, **tally.state())
+    if sp.enabled:
+        OBS.current_tracer().metrics.histogram(
+            "checkpoint_commit_ms").observe(
+                1e3 * (time.perf_counter() - t0))
+    if fault is not None:
+        fault.after_commit(label, ci)
 
 
 def _union_stream(results: Tuple[StreamResult, ...], cfg: ERConfig,
                   names: Tuple[str, ...], oracle: Optional[Set[Pair]],
                   total_comparisons: int) -> StreamResult:
-    """Union per-pass StreamResults: pair/accounting union through the ONE
-    shared implementation (``facade.union_blocking``) + additive streaming
-    telemetry."""
-    blocking = F.union_blocking(results, cfg, results[0].blocking.runner)
+    """Union per-pass StreamResults: pairs, accounting and resilience
+    through the facade's multi-pass union (``facade.union_passes``) +
+    additive streaming telemetry."""
+    blocking, matches, resilience = F.union_passes(results, cfg)
     s0 = results[0].stream
     total = lambda f: sum(getattr(r.stream, f) for r in results)
     stats = StreamStats(
@@ -546,19 +558,9 @@ def _union_stream(results: Tuple[StreamResult, ...], cfg: ERConfig,
     if oracle is not None:
         metrics = compute_metrics(blocking.pairs, oracle,
                                   total_comparisons)
-    rz = [r.resilience for r in results if r.resilience is not None]
-    resilience = None if not rz else RZ.ResilienceStats(
-        policy=rz[0].policy,
-        retries=sum(x.retries for x in rz),
-        escalations=sum(x.escalations for x in rz),
-        cand_cap=max(x.cand_cap for x in rz),
-        pair_cap=max(x.pair_cap for x in rz),
-        auto_caps=any(x.auto_caps for x in rz))
     return StreamResult(
-        blocking=blocking,
-        matches=RES.PairSet().union(*(r.matches for r in results)),
-        stream=stats, metrics=metrics, passes=results, pass_names=names,
-        resilience=resilience)
+        blocking=blocking, matches=matches, stream=stats, metrics=metrics,
+        passes=results, pass_names=names, resilience=resilience)
 
 
 def _finalize(res: StreamResult, nbytes: int,
@@ -631,36 +633,12 @@ def _resolve_stream(chunks: Iterable[dict], cfg: ERConfig, *,
     if fault_plan is not None:
         raise ValueError("fault_plan injects crashes at checkpoint commit "
                          "seams and requires checkpoint_dir")
+    raw = ChunkStore(spool_dir, prefix="raw")
     with OBS.span("ingest"):
-        raw, max_len, total, nbytes = _ingest(chunks, spool_dir)
+        max_len, total, nbytes = _ingest(chunks, raw)
     return _resolve_ingested(raw, max_len, total, nbytes, cfg,
                              chunk_size=chunk_size, mesh=mesh, axis=axis,
                              device=device, spool_dir=spool_dir)
-
-
-def _ingest_checkpointed(chunks: Iterable[dict], store: ChunkStore,
-                         ckpt) -> None:
-    """The durable twin of ``_ingest``: append each (valid-stripped) chunk
-    to the checkpoint's raw store and commit the running ingest totals
-    after every append.  A resumed run re-supplies the SAME deterministic
-    iterator; the first ``ingest.chunks`` non-empty chunks are skipped —
-    they are already durable."""
-    skip = ckpt.ingest["chunks"]
-    max_len = ckpt.ingest["max_len"]
-    total, nbytes = ckpt.ingest["total"], ckpt.ingest["nbytes"]
-    seen = 0
-    for ents in chunks:
-        h = _valid_host(ents)
-        if int(h["key"].shape[0]) == 0:
-            continue
-        seen += 1
-        if seen <= skip:
-            continue         # durably committed by the previous run
-        max_len = max(max_len, int(h["key"].shape[0]))
-        total += int(h["key"].shape[0])
-        nbytes += _entity_bytes(h)
-        store.append(h)
-        ckpt.commit_raw(max_len, total, nbytes)
 
 
 def _resolve_checkpointed(chunks: Optional[Iterable[dict]], cfg: ERConfig,
@@ -683,7 +661,7 @@ def _resolve_checkpointed(chunks: Optional[Iterable[dict]], cfg: ERConfig,
                 f"needs the original chunk iterator re-supplied via "
                 f"chunks=...")
         with OBS.span("ingest"):
-            _ingest_checkpointed(chunks, raw, ckpt)
+            _ingest(chunks, raw, ckpt=ckpt)
         ckpt.ingest_done()
     ing = ckpt.ingest
     res = _resolve_ingested(raw, ing["max_len"], ing["total"],
@@ -747,18 +725,6 @@ def _resolve_ingested(raw: ChunkStore, max_len: int, total: int,
         nbytes, raw.spooled_bytes)
 
 
-def _untag_stream(res: StreamResult, offset: int) -> StreamResult:
-    """Map a StreamResult (and its passes) from the merged linkage eid
-    space back to (lhs_eid, rhs_eid) tuples."""
-    blocking = replace(
-        res.blocking,
-        pairs=frozenset(LK.untag_pairs(res.blocking.pairs, offset)))
-    return replace(
-        res, blocking=blocking,
-        matches=frozenset(LK.untag_pairs(res.matches, offset)),
-        passes=tuple(_untag_stream(p, offset) for p in res.passes))
-
-
 def link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
                 cfg: ERConfig, *, chunk_size: Optional[int] = None,
                 mesh=None, axis: str = "data",
@@ -813,15 +779,13 @@ def _link_stream(lhs_chunks: Iterable[dict], rhs_chunks: Iterable[dict],
         return transform
 
     with OBS.span("ingest"):
-        _, len_l, total_l, bytes_l = _ingest(lhs_chunks, spool_dir,
-                                             store=store,
-                                             transform=tagger(0, 0))
+        len_l, total_l, bytes_l = _ingest(lhs_chunks, store,
+                                          transform=tagger(0, 0))
         offset = max_eid + 1
-        _, len_r, total_r, bytes_r = _ingest(rhs_chunks, spool_dir,
-                                             store=store,
-                                             transform=tagger(1, offset))
+        len_r, total_r, bytes_r = _ingest(rhs_chunks, store,
+                                          transform=tagger(1, offset))
     res = _resolve_ingested(store, max(len_l, len_r), total_l + total_r,
                             bytes_l + bytes_r, cfg, chunk_size=chunk_size,
                             mesh=mesh, axis=axis, device=device,
                             spool_dir=spool_dir, n_lhs=total_l)
-    return _untag_stream(res, offset)
+    return F.untag(res, offset)

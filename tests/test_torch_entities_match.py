@@ -52,6 +52,31 @@ def test_sort_order_equals_reference(seed, n_keys, invalid):
                                   np.asarray(want["payload"]["sig"]))
 
 
+def test_host_pad_appends_invalid_rows_past_every_key():
+    """``host_pad``: the padding rows are invalid with keys past every real
+    key, the payload keeps its fields and dtypes, the rows equal the
+    reference stream's padding, and ``cap == n`` returns the input."""
+    from repro.stream.resolver import _host_pad as ref_pad
+    h = TE.to_host(TE.synth_entities(np.random.default_rng(4), 37,
+                                     n_keys=9, text_len=6))
+    got = TE.host_pad(h, 50)
+    assert got["key"].shape == (50,)
+    assert not got["valid"][37:].any() and got["valid"][:37].all()
+    assert int(got["key"][37:].min()) > int(h["key"].max())
+    assert got["key"][37:].dtype == np.int32
+    assert set(got["payload"]) == set(h["payload"])
+    for k, v in h["payload"].items():
+        assert got["payload"][k].dtype == v.dtype, k
+        assert got["payload"][k].shape == (50,) + v.shape[1:], k
+    want = ref_pad(h, 50)
+    for f in ("key", "eid", "valid"):
+        np.testing.assert_array_equal(got[f], want[f])
+        assert got[f].dtype == want[f].dtype
+    for k in h["payload"]:
+        np.testing.assert_array_equal(got["payload"][k], want["payload"][k])
+    assert TE.host_pad(h, 37) is h
+
+
 def test_batched_slice_roll_match_dynamic_slice_clamping():
     """Per-shard starts/shifts on a stacked (r, M) entity dict equal the
     reference's dynamic_slice / roll applied shard by shard — including

@@ -206,6 +206,33 @@ def test_reference_checkpoint_resumes_in_port(tmp_path, host, engine):
         assert_same_stream(own, res)
 
 
+def test_manifest_without_pruned_resumes(tmp_path, host):
+    """A pass manifest written before evidence pruning has no ``pruned``
+    counter: the resume counts it from 0, so the result holds the pruning
+    of the chunks resolved after the kill only, in both packages, and
+    every pair set is the uninterrupted run's."""
+    kw = _kw(variant="jobsn", band_engine="pallas",
+             prune_policy="evidence", prune_threshold=0.55)
+    full = _ref_stream(host, kw, tmp_path / "ref")
+    d = str(tmp_path / "old")
+    with pytest.raises(RZ.InjectedFault):
+        RS.resolve_stream(_chunks(host), RA.ERConfig(**kw),
+                          chunk_size=CHUNK, checkpoint_dir=d,
+                          fault_plan=RZ.FaultPlan(crash_after_chunk=2))
+    manifest = _manifest(d)
+    committed = manifest["passes"]["key"].pop("pruned")
+    assert committed > 0
+    with open(os.path.join(d, "MANIFEST.json"), "w") as f:
+        json.dump(manifest, f)
+    shutil.copytree(d, d + "-ref")
+    clear_caches()
+    own = RA.resume(d + "-ref")
+    res = TA.resume(d, device="cpu")
+    assert_same_stream(own, res)
+    assert res.pairs == full.pairs and res.matches == full.matches
+    assert res.blocking.pruned == full.blocking.pruned - committed
+
+
 def _manifest(d):
     with open(os.path.join(d, "MANIFEST.json")) as f:
         return json.load(f)
