@@ -1,5 +1,6 @@
 """Typed result objects + host-side pair extraction (port of
-``repro.api.results``; everything here is host numpy).
+``repro.api.results``; host numpy, but for the device twins of the pair
+extraction, ``packed_pairs_device`` and ``unique_packed_device``).
 
 Replaces the raw nested dicts the old pipeline returned: results carry the
 pair sets, per-shard load, overflow accounting, and (optionally) blocking
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional, Set, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import obs as OBS
 from repro_torch.resilience.retry import ResilienceStats
@@ -591,6 +593,41 @@ def packed_pairs_from_band(part: dict, field: str = "match") -> np.ndarray:
     a = eid[ss, iis]
     b = eid[ss, iis + ds + 1]       # in-bounds: masks force i + d < M
     return unique_packed(pack_pairs(a, b))
+
+
+# -- the same extraction where the runner's output lives (torch) -------------
+
+def packed_pairs_device(part: dict, field: str = "match") -> torch.Tensor:
+    """``packed_pairs_from_part`` on the part's own device, before the
+    dedup: the packed pairs of every valid slot as int64 (repeats kept).
+    Eids are non-negative int32, so each value is below 2^63 and the int64
+    order is the uint64 order.  Index buffers are cut to their longest
+    valid prefix (``_n``), as ``runners._to_host`` cuts them."""
+    eid = part["eid"] if "eid" in part else part["ents"]["eid"]   # (r, M)
+    m = eid.shape[-1]
+    eid = eid.reshape(-1)
+    if field + "_idx" in part:
+        cnt = part[field + "_n"].reshape(-1)                      # (r,)
+        used = int(cnt.max()) if cnt.numel() else 0
+        ss, pp = (torch.arange(used, device=eid.device) < cnt[:, None]) \
+            .nonzero(as_tuple=True)
+        flat = part[field + "_idx"][ss, pp].to(torch.int64)
+        d0 = flat.div(m, rounding_mode="floor")         # d - 1
+        ia = flat.remainder_(m).add_(ss.mul_(m))        # s*M + i
+    else:
+        ss, d0, ii = torch.nonzero(part[field], as_tuple=True)
+        ia = ss.mul_(m).add_(ii)
+    a = eid[ia]
+    b = eid[ia.add_(d0).add_(1)]    # in-bounds: band masks force i + d < M
+    return torch.minimum(a, b).to(torch.int64).bitwise_left_shift_(32) \
+        .bitwise_or_(torch.maximum(a, b))
+
+
+def unique_packed_device(packed: torch.Tensor) -> np.ndarray:
+    """``unique_packed`` of an int64 packed tensor, sorted and deduplicated
+    on its device, then copied to the host once as uint64."""
+    uniq = torch.unique_consecutive(torch.sort(packed).values)
+    return uniq.cpu().numpy().view(PACKED_DTYPE)
 
 
 def pairs_from_band(part: dict, field: str = "match") -> Set[Pair]:

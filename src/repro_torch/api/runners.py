@@ -174,55 +174,63 @@ def _to_host(out):
     return {k: _to_host(v) for k, v in out.items()}
 
 
-def _nbytes(out) -> int:
-    """Summed bytes of every tensor in a (nested) shard-program output."""
-    if torch.is_tensor(out):
-        return out.numel() * out.element_size()
-    if isinstance(out, dict):
-        return sum(_nbytes(v) for v in out.values())
-    return 0
+# the per-part counters a PackedOutcome sums (a part carries each it has)
+_PART_COUNTERS = ("cand_count", "cand_overflow", "matcher_evals", "pruned",
+                  "mask_overflow", "match_overflow")
+
+
+@torch.inference_mode()
+def _counters(out: dict, variant) -> Tuple[torch.Tensor, list]:
+    """Every counter of a device output that the outcome reports, as one
+    vector on its device (one launch: ``cat`` promotes to the widest
+    integer dtype among them), so one copy brings them all to the host,
+    and its layout: (name, size) of each piece in order — ``load`` (the
+    first shard's view), ``overflow``, then each of the variant's parts'
+    ``_PART_COUNTERS``."""
+    pieces = [("load", out["load"][0]), ("overflow", out["overflow"][0])]
+    pieces += [(k, out[p][k]) for p in variant.parts if p in out
+               for k in _PART_COUNTERS if k in out[p]]
+    return (torch.cat([x.reshape(-1) for _, x in pieces]),
+            [(k, x.numel()) for k, x in pieces])
 
 
 def _device_outcome_packed(out: dict, cfg, r: int) -> PackedOutcome:
-    """Per-shard device output -> PackedOutcome (host collection +
-    accounting).  Under an active tracer the collection runs inside a
-    ``collect`` span carrying the bytes of the device output it copies to
-    the host (also the ``transfer_bytes`` counter) and the realized
-    per-shard loads."""
+    """Per-shard device output -> PackedOutcome.  The pair sets are made
+    on the output's device (``collect_device``) and the counters copied
+    as one vector (``_counters``) and summed over the parts on the host:
+    three copies to the host in all, each blocking, so every read of the
+    output (a replayed graph's static buffers) is done on return.  Under
+    an active tracer the collection runs inside a ``collect`` span
+    carrying the bytes copied (also the ``transfer_bytes`` counter) and
+    the realized per-shard loads, and counts one ``device_collections``."""
     sp = OBS.span("collect")
     with sp:
-        if sp.enabled:
-            nbytes = _nbytes(out)
-            sp.set(transfer_bytes=nbytes)
-            OBS.current_tracer().metrics.counter("transfer_bytes") \
-                .inc(nbytes)
-        out = _to_host(out)
         variant = get_variant(cfg.variant)
-        col = variant.collect(out)
-        load = tuple(int(x) for x in out["load"][0])
-        overflow = int(out["overflow"][0])
-        cand_count = np.zeros(r, np.int64)
-        cand_overflow = matcher_evals = pair_overflow = pruned = 0
-        for p in variant.parts:
-            if p in out:
-                cand_count += np.asarray(out[p]["cand_count"], np.int64)
-                cand_overflow += int(out[p]["cand_overflow"].sum())
-                matcher_evals += int(
-                    np.asarray(out[p]["matcher_evals"], np.int64).sum())
-                if "pruned" in out[p]:
-                    pruned += int(out[p]["pruned"].sum())
-                if "mask_overflow" in out[p]:
-                    pair_overflow += int(out[p]["mask_overflow"].sum()) + \
-                        int(out[p]["match_overflow"].sum())
+        col = variant.collect_device(out)
+        vec, layout = _counters(out, variant)
+        copied = vec.cpu()
+        vals = copied.numpy().astype(np.int64)
+        ends = np.cumsum([n for _, n in layout])
+        tot = {"cand_count": np.zeros(r, np.int64)}
+        for (k, _), v in zip(layout, np.split(vals, ends[:-1])):
+            tot[k] = tot.get(k, 0) + (v if k in ("load", "cand_count")
+                                      else int(v.sum()))
+        load = tuple(int(x) for x in tot["load"])
         if sp.enabled:
-            sp.set(load=load)
+            nbytes = col.blocked.nbytes + col.matched.nbytes + \
+                copied.nbytes
+            sp.set(transfer_bytes=nbytes, load=load)
+            metrics = OBS.current_tracer().metrics
+            metrics.counter("transfer_bytes").inc(nbytes)
+            metrics.counter("device_collections").inc()
     return PackedOutcome(blocked=col.blocked, matched=col.matched,
-                         load=load, overflow=overflow, num_shards=r,
-                         cand_count=tuple(int(c) for c in cand_count),
-                         cand_overflow=cand_overflow,
-                         matcher_evals=matcher_evals,
-                         pair_overflow=pair_overflow,
-                         pruned=pruned)
+                         load=load, overflow=tot["overflow"], num_shards=r,
+                         cand_count=tuple(int(c) for c in tot["cand_count"]),
+                         cand_overflow=tot.get("cand_overflow", 0),
+                         matcher_evals=tot.get("matcher_evals", 0),
+                         pair_overflow=tot.get("mask_overflow", 0)
+                         + tot.get("match_overflow", 0),
+                         pruned=tot.get("pruned", 0))
 
 
 @dataclass(frozen=True)

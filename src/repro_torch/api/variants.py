@@ -13,7 +13,8 @@ Each variant owns three hooks:
     ``overflow``, ``load`` and one or more band parts (``main``,
     optionally ``boundary``)
   * ``collect(out)``  host pair sets (blocked + matched) from the runner
-    output, deduplicated across parts
+    output, deduplicated across parts; ``collect_device(out)`` makes the
+    same sets on the output's device and copies only them to the host
   * ``sequential_pairs(keys, eids, bounds, w, part=None)``  the HOST oracle
     with this variant's semantics (SRP: per-partition windows; RepSN/JobSN:
     the complete sequential SN pair set)
@@ -25,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Set, Tuple, Type
 
 import numpy as np
+import torch
 
 from repro_torch.api import results as RES
 from repro_torch.core import jobsn as J
@@ -137,6 +139,20 @@ class VariantBase:
             if parts else np.empty((0,), RES.PACKED_DTYPE)
         return RES.CollectedPairs(blocked=dedup(blocked),
                                   matched=dedup(matched))
+
+    @torch.inference_mode()
+    def collect_device(self, out: dict) -> RES.CollectedPairs:
+        """``collect`` of the runner output (tensors) on its own device:
+        the parts' pairs are packed, unioned, sorted and deduplicated
+        there, and only the two finished sets are copied to the host —
+        bit-identical to ``collect(runners._to_host(out))``."""
+        sets = []
+        for field in ("mask", "match"):
+            parts = [RES.packed_pairs_device(out[p], field)
+                     for p in self.parts if p in out]
+            sets.append(RES.unique_packed_device(torch.cat(parts))
+                        if parts else np.empty((0,), RES.PACKED_DTYPE))
+        return RES.CollectedPairs(blocked=sets[0], matched=sets[1])
 
     def sequential_pairs(self, keys: np.ndarray, eids: np.ndarray,
                          bounds: np.ndarray, w: int,

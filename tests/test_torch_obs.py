@@ -19,9 +19,10 @@ pair set).
     ``PORT_ONLY_METRICS``, dropped from every parity check and held
     disjoint from the reference's): the public pair sets, the serve
     batch's steps, a stream's spool and union, the merge's blocks, the
-    tuples the public sets box (``pairs_boxed``) and the
-    collector's passes, whose ``gc.callbacks`` hook is installed only
-    while a tracer is active and cannot deadlock the tracer
+    tuples the public sets box (``pairs_boxed``), the collections made
+    on the device (``device_collections``) and the collector's passes,
+    whose ``gc.callbacks`` hook is installed only while a tracer is
+    active and cannot deadlock the tracer
 """
 import collections
 import gc
@@ -77,8 +78,10 @@ PORT_ONLY_SPANS = frozenset({"frozensets", "gc", "index", "delta_pairs",
                              "set_algebra", "compact", "publish", "spool",
                              "union"})
 # metrics only the port records (the k-way merge's yielded blocks, the
-# tuples its public pair sets yield when iterated)
-PORT_ONLY_METRICS = frozenset({"merge_blocks", "pairs_boxed"})
+# tuples its public pair sets yield when iterated, its collections made on
+# the device)
+PORT_ONLY_METRICS = frozenset({"merge_blocks", "pairs_boxed",
+                               "device_collections"})
 
 
 def _edges(spans):
